@@ -8,8 +8,11 @@ updates. Stage-wise trainability follows the JAX package: frozen views' locnets
 run without a backward graph, their gradients are masked, and their parameters
 are not updated (so decoupled weight decay leaves them bit-unchanged).
 
-``theta_pass``/``eval_step``, the cached-theta cadence, from-segmented slicing,
-slice alignment to the principal axis and EPix2Vox are not ported yet.
+``theta_pass`` snapshots every sample's thetas for the cached-theta cadence
+(``theta_source='cached'``: the step takes them from the batch and runs no
+localization net); ``eval_step`` is the forward-only step of validation and test.
+From-segmented slicing, slice alignment to the principal axis and EPix2Vox are not
+ported yet.
 """
 
 import dataclasses
@@ -28,7 +31,7 @@ from acquisition_focus_tpu_torch.models.atm import (
 from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3, HybridUnet
 from acquisition_focus_tpu_torch.ops.affine import compose
 from acquisition_focus_tpu_torch.ops.resample import (
-    nifti_grid_sample, nifti_grid_sample_nodiff)
+    nifti_grid_sample, nifti_grid_sample_nodiff, resize_trilinear)
 from acquisition_focus_tpu_torch.ops.rotations import random_affine_batch
 
 
@@ -89,10 +92,7 @@ class StageSpec:
 def _check_ported(spec):
     missing = [name for name, on in (
         (f"model_type={spec.model_type!r}", spec.model_type != 'hybrid-unet'),
-        ("theta_source='cached'", spec.theta_source == 'cached'),
         ("rotate_slice_to_min_principle", spec.rotate_slice_to_min_principle),
-        ("slice upsampling (slice_fov_vox in-plane != hires_fov_vox)",
-         tuple(spec.slice_fov_vox[:2]) != tuple(spec.hires_fov_vox[:2])),
         ("atm_remat", spec.atm_remat),
         ("unet_remat", spec.unet_remat),
         (f"decoder_save_names={spec.decoder_save_names!r}",
@@ -156,7 +156,7 @@ def compute_thetas(spec: StageSpec, atms, soft_label, nii_affine, view_affines):
 
 
 def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affines,
-                        augment_generator=None):
+                        augment_generator=None, cached_thetas=None):
     """Per-view model-input slices along learned view planes.
 
     Args:
@@ -165,6 +165,9 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
       view_affines: (A, B, 4, 4) input grid affines of the active views.
       augment_generator: optional CPU ``torch.Generator``: per-sample input
         orientation augmentation shared across views.
+      cached_thetas: (A, B, 4, 4) thetas snapshotted by :func:`theta_pass`; under
+        ``theta_source='cached'`` they replace the prescan and localization nets
+        (the cache was taken from the unaugmented view orientation).
 
     Returns: (slices (A, B, C, Sh, Sw), grid_affines (A, B, 4, 4),
               out_nii_affines (A, B, 4, 4), thetas (A, B, 4, 4)).
@@ -178,7 +181,9 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
             device=soft_label.device)
         view_affines = compose(view_affines, aug[None])
 
-    if spec.use_affine_theta:
+    if spec.use_affine_theta and spec.theta_source == 'cached':
+        thetas = cached_thetas.float().detach()
+    elif spec.use_affine_theta:
         thetas = compute_thetas(spec, atms, soft_label, nii_affine, view_affines)
     else:
         thetas = torch.eye(4, device=soft_label.device).expand(A, B, 4, 4)
@@ -189,6 +194,11 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
         pre_grid_sample_affine=_fold(pre))
     Sh, Sw, Sd = spec.slice_fov_vox
     slices = slices.reshape(A, B, C, Sh, Sw, Sd)[..., 0]
+    Hh, Hw = spec.hires_fov_vox[:2]
+    if (Sh, Sw) != (Hh, Hw):
+        # upsample to the hires in-plane resolution
+        up = resize_trilinear(_fold(slices)[..., None], (Hh, Hw, 1))[..., 0]
+        slices = up.reshape(A, B, C, Hh, Hw)
     return slices, grid_affines.reshape(A, B, 4, 4), out_nii.reshape(A, B, 4, 4), thetas
 
 
@@ -213,7 +223,8 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None):
     """Volumes -> view slices -> reconstruction -> loss.
 
     ``batch``: 'label' (B, D, H, W) int, 'nii_affine' (B, 4, 4),
-    'view_affines' (V, B, 4, 4). Augmentation draws come from
+    'view_affines' (V, B, 4, 4), and under ``theta_source='cached'`` 'thetas'
+    (A, B, 4, 4). Augmentation draws come from
     ``augment_generator`` (None: no augmentation)."""
     label = batch['label']
     nii_affine = batch['nii_affine']
@@ -223,7 +234,7 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None):
     aug_in = augment_generator if spec.augment_input else None
     aug_re = augment_generator if spec.augment_recon else None
     slices, grid_affines, out_nii, thetas = extract_view_slices(
-        spec, atms, onehot, nii_affine, view_affines, aug_in)
+        spec, atms, onehot, nii_affine, view_affines, aug_in, batch.get('thetas'))
     b_input, grid_affines_full = assemble_model_input(spec, slices, grid_affines, aug_re)
     logits = unet(b_input, grid_affines_full)
 
@@ -275,3 +286,28 @@ def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
         opt.step()
         sched.step()
     return {'loss': torch.stack(losses).mean(), 'dice': torch.cat(dices)}
+
+
+@torch.no_grad()
+def theta_pass(spec: StageSpec, atms, batch):
+    """Snapshot every sample's learned view corrections: (A, B, 4, 4).
+
+    Forward only, unaugmented, no gradient: the theta-refresh cadence fills its
+    per-sample cache with it after each window of transform updates. ``spec``
+    must compute thetas (``theta_source='locnet'``)."""
+    onehot = F.one_hot(batch['label'].long(), spec.num_classes).movedim(-1, 1).float()
+    view_affines = batch['view_affines'][:spec.n_active_views]
+    return compute_thetas(spec, atms, onehot, batch['nii_affine'], view_affines)
+
+
+@torch.no_grad()
+def eval_step(spec: StageSpec, unet, atms, batch, generator=None, with_aug=False):
+    """Forward-only step: loss, per-class dice, dense predictions, and the view
+    geometry (thetas, slice affines) and model input for logging and output.
+    Augmentation draws come from ``generator`` when ``with_aug``."""
+    loss, aux = forward(spec, unet, atms, batch, generator if with_aug else None)
+    num_eval = 2 if spec.use_binarized_labels else spec.num_classes
+    pred, dice = metrics_from_logits(aux['logits'], aux['target_onehot'], num_eval)
+    return {'loss': loss, 'dice': dice, 'pred': pred, 'thetas': aux['thetas'],
+            'grid_affines': aux['grid_affines'], 'out_nii_affines': aux['out_nii_affines'],
+            'b_input': aux['b_input']}

@@ -6,8 +6,9 @@
 blocks per stage, InstanceNorm(affine) + LeakyReLU, stride-2 downsampling from stage 1
 on; skip connectors re-embed every 2D feature map into 3D along the inverted,
 zoom-stripped slice affine (kernel K1 on CUDA); 3D decoder with 2^3/2 transposed-conv
-upsampling, skip concat, two 3^3 conv blocks per stage (kernel K3 forward at the
-full-resolution level on CUDA); 1x1x1 head in float32.
+upsampling, skip concat, two 3^3 conv blocks per stage (at the full-resolution
+level on CUDA: kernel K3 forward, and per ``use_pallas_conv`` K3 as the input
+gradient and K4 as the weight gradient); 1x1x1 head in float32.
 
 The convs compute in ``dtype`` (bf16 under autocast over float32 params); norms
 compute in float32, as flax's GroupNorm does with float32 params.
@@ -62,26 +63,40 @@ class EncoderStage(nn.Module):
 
 
 class Conv3x3x3(nn.Module):
-    """3^3 SAME conv whose forward goes through kernel K3 where the JAX package
-    routes it through its Pallas conv (``use_kernel`` and the shape qualifies:
-    the full-resolution decoder level); every other level is ``F.conv3d``."""
+    """3^3 SAME conv routed as the JAX package's ``Conv3x3x3`` routes it
+    (``use_kernel`` = its ``use_pallas``; ``mode`` holds the resolved mode), where
+    the shape qualifies (the full-resolution decoder level); every other level is
+    ``F.conv3d``:
 
-    MODES = (False, True, 'fwd')
+      False          F.conv3d, library gradients
+      True / 'fwd'   K3 forward, library gradients
+      'fwdN'         'fwd' when the input has at least N channels, else False
+      'wg'           K3 forward, K4 weight gradient, library input gradient
+      'dx'           K3 forward, K3 input gradient, library weight gradient
+      'full'         K3 forward, K3 input gradient, K4 weight gradient
+    """
+
+    MODES = (False, True, 'fwd', 'wg', 'dx', 'full')
 
     def __init__(self, ci, co, use_kernel=False):
         super().__init__()
-        if use_kernel not in self.MODES:
-            raise ValueError(f"use_pallas_conv3d={use_kernel!r}: the port has "
-                             f"{self.MODES}; 'wg'/'dx'/'full' are not ported yet")
-        self.use_kernel = bool(use_kernel)
+        mode = use_kernel
+        if isinstance(mode, str) and mode[:3] == 'fwd' and mode[3:].isdigit():
+            mode = 'fwd' if ci >= int(mode[3:]) else False
+        if mode not in self.MODES:
+            raise ValueError(
+                f"unknown use_pallas_conv3d mode {use_kernel!r}: expected one of "
+                "False, True, 'fwd', 'fwdN' (N = min channel count), 'wg', 'dx', 'full'")
+        self.mode = mode
         self.weight = nn.Parameter(torch.empty(co, ci, 3, 3, 3))
         self.bias = nn.Parameter(torch.zeros(co))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
 
     def forward(self, x):
         x = x.to(_compute_dtype(x))
-        if self.use_kernel and supports_conv3d(x.shape, self.weight.shape):
-            return conv3d(x, self.weight, self.bias)
+        if self.mode and supports_conv3d(x.shape, self.weight.shape):
+            return conv3d(x, self.weight, self.bias, kernel_dx=self.mode in ('dx', 'full'),
+                          kernel_dw=self.mode in ('wg', 'full'))
         return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=1)
 
 

@@ -12,6 +12,7 @@ or a failed build raises.
 
 ``LAUNCHES`` counts, per kernel, the launches since the last
 :func:`reset_launch_counts`; each wrapper adds one where it launches its kernel.
+K3 launched as the input gradient of the conv counts under ``conv3d_dx``.
 """
 
 import ctypes
@@ -32,10 +33,12 @@ _SIGNATURES = {
     'afk_plane_resample_bwd': [_P] * 5 + [_I] * 5 + [_P],
     'afk_volume_resample': [_P] * 3 + [_I] * 10 + [_P],
     'afk_conv3d_fwd': [_P] * 4 + [_I] * 7 + [_P],
+    'afk_conv3d_wgrad_workspace': [_I] * 5 + [_P],
+    'afk_conv3d_wgrad': [_P] * 4 + [_I] * 7 + [_P],
 }
 
 LAUNCHES = {'plane_resample_fwd': 0, 'plane_resample_bwd': 0,
-            'volume_resample': 0, 'conv3d_fwd': 0}
+            'volume_resample': 0, 'conv3d_fwd': 0, 'conv3d_dx': 0, 'conv3d_wgrad': 0}
 
 _lib = None
 

@@ -1,9 +1,21 @@
-"""K3: 3x3x3 stride-1 SAME conv forward of the decoder's full-resolution level
-(``csrc/conv3d.cu``; replaces the JAX package's ``ops/pallas/conv3d.py::conv3d_pallas``).
+"""K3 and K4: the 3x3x3 stride-1 SAME conv of the decoder's full-resolution level.
 
-The gradients are the library's (``torch.nn.grad.conv3d_input``/``conv3d_weight``),
-as the JAX package leaves them to XLA. Plain version: ``F.conv3d(x, w, b, padding=1)``.
+K3 (``csrc/conv3d.cu``) is the forward and replaces the JAX package's
+``ops/pallas/conv3d.py::conv3d_pallas``; K4 (``csrc/conv3d_wgrad.cu``) is the weight
+gradient and replaces its ``conv3d_wgrad_pallas``. :func:`conv3d` wires them as the
+JAX package's ``conv3d``/``conv3d_wg``/``conv3d_dx``/``conv3d_pg`` do:
+
+  kernel_dx: the input gradient is K3 itself, on the cotangent with the spatially
+             flipped, IO-swapped weights (launches counted as ``conv3d_dx``);
+             otherwise the library's ``torch.nn.grad.conv3d_input``;
+  kernel_dw: the weight gradient is K4; otherwise ``torch.nn.grad.conv3d_weight``.
+
+Plain versions: ``F.conv3d(x, w, b, padding=1)`` (K3) and
+``torch.nn.grad.conv3d_weight(x, w_shape, g, padding=1)`` (K4). CPU tensors take
+them; CUDA tensors launch the kernels or raise.
 """
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -28,9 +40,10 @@ def supports_conv3d(x_shape, w_shape):
     return W % 128 == 0 and D % _TZ == 0 and H % _TY == 0
 
 
-def conv3d_fwd_cuda(x, weight, bias):
-    """Kernel launch: (B, Ci, D, H, W) x (Co, Ci, 3, 3, 3) + (Co,) ->
-    (B, Co, D, H, W) in ``x.dtype`` (f32 accumulation, bias added in f32)."""
+def conv3d_fwd_cuda(x, weight, bias, count_as='conv3d_fwd'):
+    """K3 launch: (B, Ci, D, H, W) x (Co, Ci, 3, 3, 3) + (Co,) -> (B, Co, D, H, W)
+    in ``x.dtype`` (f32 accumulation, bias added in f32). The launch counts under
+    ``count_as``."""
     B, Ci, D, H, W = x.shape
     Co = weight.shape[0]
     _lib.check_cuda_tensor('x', x, _DTYPES)
@@ -42,32 +55,79 @@ def conv3d_fwd_cuda(x, weight, bias):
     _lib.check_cuda_tensor('weight', wt, (x.dtype,))
     _lib.check_cuda_tensor('bias', b32, (torch.float32,))
     out = torch.empty((B, Co, D, H, W), dtype=x.dtype, device=x.device)
-    _lib.launch('conv3d_fwd', 'afk_conv3d_fwd',
+    _lib.launch(count_as, 'afk_conv3d_fwd',
                 x.data_ptr(), wt.data_ptr(), b32.data_ptr(), out.data_ptr(),
                 B, Ci, Co, D, H, W, int(x.dtype == torch.bfloat16))
     return out
 
 
+def conv3d_wgrad_cuda(x, g):
+    """K4 launch: (B, Ci, D, H, W) input and (B, Co, D, H, W) cotangent of one
+    dtype -> (Co, Ci, 3, 3, 3) float32 weight gradient. Split-K over voxel rows
+    into a workspace, then a fixed-order sum over the chunks (deterministic)."""
+    B, Ci, D, H, W = x.shape
+    Co = g.shape[1]
+    _lib.check_cuda_tensor('x', x, _DTYPES)
+    _lib.check_cuda_tensor('g', g, (x.dtype,))
+    if g.shape != (B, Co, D, H, W):
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match x {tuple(x.shape)}")
+    ws = (ctypes.c_int * 2)()
+    _lib.library().afk_conv3d_wgrad_workspace(B, Ci, Co, D, H, ctypes.addressof(ws))
+    part = torch.empty(ws[0] * ws[1], dtype=torch.float32, device=x.device)
+    dw = torch.empty((Co, Ci, 3, 3, 3), dtype=torch.float32, device=x.device)
+    _lib.launch('conv3d_wgrad', 'afk_conv3d_wgrad',
+                x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                B, Ci, Co, D, H, W, int(x.dtype == torch.bfloat16))
+    return dw
+
+
+def conv3d_wgrad(x, g):
+    """Weight gradient (Co, Ci, 3, 3, 3) in float32: K4 for CUDA tensors, the
+    plain version for CPU tensors."""
+    if not x.is_cuda:
+        w_shape = (g.shape[1], x.shape[1], 3, 3, 3)
+        return torch.nn.grad.conv3d_weight(x, w_shape, g, padding=1).float()
+    return conv3d_wgrad_cuda(x.contiguous(), g.contiguous())
+
+
+def _forward(x, weight, bias, count_as='conv3d_fwd'):
+    if not x.is_cuda:
+        return F.conv3d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
+    return conv3d_fwd_cuda(x, weight, bias, count_as)
+
+
 class _Conv3d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, weight, bias):
+    def forward(ctx, x, weight, bias, kernel_dx, kernel_dw):
         ctx.save_for_backward(x, weight)
-        return conv3d_fwd_cuda(x, weight, bias)
+        ctx.kernel_dx, ctx.kernel_dw = kernel_dx, kernel_dw
+        return _forward(x, weight, bias)
 
     @staticmethod
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
-        grad = grad.to(x.dtype)
-        dx = torch.nn.grad.conv3d_input(x.shape, weight.to(x.dtype), grad, padding=1)
-        dw = torch.nn.grad.conv3d_weight(x, weight.shape, grad, padding=1)
+        # cast to x's dtype, so the JAX package's dtype guard on K4 always holds;
+        # its shape guards (ops/pallas/conv3d.py:314-321) follow
+        grad = grad.to(x.dtype).contiguous()
+        w = weight.to(x.dtype)
+        w_t = w.flip(2, 3, 4).transpose(0, 1)
+        if ctx.kernel_dx and supports_conv3d(grad.shape, w_t.shape):
+            dx = _forward(grad, w_t, grad.new_zeros(w_t.shape[0], dtype=torch.float32),
+                          'conv3d_dx')
+        else:
+            dx = torch.nn.grad.conv3d_input(x.shape, w, grad, padding=1)
+        if ctx.kernel_dw and supports_conv3d(x.shape, w.shape):
+            dw = conv3d_wgrad(x, grad)
+        else:
+            dw = torch.nn.grad.conv3d_weight(x, weight.shape, grad, padding=1)
         db = grad.sum(dim=(0, 2, 3, 4), dtype=torch.float32)
-        return dx, dw.to(weight.dtype), db.to(weight.dtype)
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None, None
 
 
-def conv3d(x, weight, bias):
-    """3x3x3 SAME conv; x and weight are used in x's dtype, the bias is added in
-    f32 and the result has x's dtype. CUDA tensors: the K3 forward kernel with
-    library gradients. CPU tensors: the plain version."""
-    if not x.is_cuda:
-        return F.conv3d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
-    return _Conv3d.apply(x.contiguous(), weight, bias)
+def conv3d(x, weight, bias, kernel_dx=False, kernel_dw=False):
+    """3x3x3 SAME conv through K3, with the input gradient through K3 as well
+    (``kernel_dx``) and the weight gradient through K4 (``kernel_dw``); the
+    other gradients are the library's. x and weight are used in x's dtype, the
+    bias is added in f32 and the result has x's dtype. CPU tensors take each
+    piece's plain version."""
+    return _Conv3d.apply(x.contiguous(), weight, bias, kernel_dx, kernel_dw)

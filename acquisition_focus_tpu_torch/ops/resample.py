@@ -15,6 +15,7 @@ views.
 """
 
 import torch
+import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.ops.affine import affine_zooms, grid_affines_for_fov
 
@@ -256,3 +257,13 @@ def sample_slice_into_volume(slices, theta, out_spat):
 
     out = out.reshape(C, B, n_out).transpose(0, 1)
     return out.reshape(B, C, out_spat, out_spat, out_spat).to(slices.dtype)
+
+
+def resize_trilinear(x, out_dhw):
+    """Half-pixel-center trilinear resize of (B, C, D, H, W), edge clamped:
+    ``F.interpolate(mode='trilinear', align_corners=False)``, the semantics of the
+    JAX package's ``resize_trilinear`` for the slice upsampling (it calls
+    ``jax.image.resize``, which also antialiases when it shrinks; the step only
+    enlarges)."""
+    return F.interpolate(x, size=tuple(int(s) for s in out_dhw), mode='trilinear',
+                         align_corners=False)

@@ -17,8 +17,9 @@ import torch
 import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.ops.kernels import _lib, affine_coefficients
+from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3
 from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
-    conv3d, conv3d_fwd_cuda, supports_conv3d)
+    conv3d, conv3d_fwd_cuda, conv3d_wgrad, conv3d_wgrad_cuda, supports_conv3d)
 from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
     plane_resample, plane_resample_bwd, plane_resample_fwd)
 from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
@@ -201,10 +202,79 @@ def test_hybrid_unet_routes_only_dec0_through_the_kernel():
     unet, _ = make_models(spec_from_config(DEFAULTS, 6, 3))
     S = 128
     routed = [s for s, stage in enumerate(unet.decoder)
-              if stage.a_conv.use_kernel
+              if stage.a_conv.mode
               and supports_conv3d((2, stage.a_conv.weight.shape[1]) + (S >> s,) * 3,
                                   stage.a_conv.weight.shape)]
     assert routed == [0]
+
+
+# ---------------------------------------------------------------- K4 conv3d wgrad, modes
+
+CONV_SHAPE = (1, 8, 8, 128, 5, 7)   # (B, D, H, W, Ci, Co): interpret mode needs W % 128
+
+
+def conv_operands(rng):
+    B, D, H, W, Ci, Co = CONV_SHAPE
+    x = rng.normal(size=(B, D, H, W, Ci)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, 3, Ci, Co)) * 0.2).astype(np.float32)
+    g = rng.normal(size=(B, D, H, W, Co)).astype(np.float32)
+    return x, w, g
+
+
+def ncdhw(a):
+    return T(a.transpose(0, 4, 1, 2, 3))
+
+
+def test_conv3d_wgrad_plain_matches_pallas(interpret, rng):
+    """K4's plain version against ``conv3d_wgrad_pallas`` in interpret mode: the
+    JAX result is (3, 3, 3, Ci, Co), the port's (Co, Ci, 3, 3, 3), both float32."""
+    x, _, g = conv_operands(rng)
+    ref = np.asarray(interpret['conv3d'].conv3d_wgrad_pallas(x, g))
+    out = conv3d_wgrad(ncdhw(x), ncdhw(g))
+    assert out.dtype == torch.float32 and out.shape == (7, 5, 3, 3, 3)
+    close_scaled(out.numpy().transpose(2, 3, 4, 1, 0), ref, 1e-5)
+
+
+@pytest.mark.parametrize('mode', ['fwd', 'wg', 'dx', 'full'])
+def test_conv_mode_gradients_match_pallas(interpret, rng, mode):
+    """Each mode's (x, w) gradients against the JAX package's custom-vjp conv of
+    that mode (``conv3d``/``conv3d_wg``/``conv3d_dx``/``conv3d_pg``) with its
+    Pallas pieces in interpret mode; the port's CPU pieces are the kernels' plain
+    versions (K3 as dx on the flipped, IO-swapped weights)."""
+    import jax
+    c3 = interpret['conv3d']
+    fn = {'fwd': c3.conv3d, 'wg': c3.conv3d_wg, 'dx': c3.conv3d_dx, 'full': c3.conv3d_pg}[mode]
+    x, w, g = conv_operands(rng)
+    dx_j, dw_j = jax.grad(lambda a, b: (fn(a, b) * g).sum(), argnums=(0, 1))(x, w)
+    xt, wt = ncdhw(x).requires_grad_(), T(w.transpose(4, 3, 0, 1, 2)).requires_grad_()
+    out = conv3d(xt, wt, torch.zeros(7), kernel_dx=mode in ('dx', 'full'),
+                 kernel_dw=mode in ('wg', 'full'))
+    (out * ncdhw(g)).sum().backward()
+    close_scaled(xt.grad.numpy().transpose(0, 2, 3, 4, 1), dx_j, 1e-5)
+    close_scaled(wt.grad.numpy().transpose(2, 3, 4, 1, 0), dw_j, 1e-5)
+
+
+@pytest.mark.parametrize('mode,ci,routed', [
+    (False, 96, False), (True, 96, 'fwd'), ('fwd', 48, 'fwd'), ('fwd64', 96, 'fwd'),
+    ('fwd64', 48, False), ('fwd48', 48, 'fwd'), ('wg', 48, 'wg'), ('dx', 96, 'dx'),
+    ('full', 96, 'full')])
+def test_conv3x3x3_modes_route_as_jax(mode, ci, routed):
+    """The JAX package's mode table (``models/hybrid_unet.py:54-93``): 'fwdN' is
+    'fwd' when the conv has at least N input channels, else off; K3 computes the
+    input gradient under 'dx'/'full', K4 the weight gradient under 'wg'/'full'."""
+    conv = Conv3x3x3(ci, 48, mode)
+    assert conv.mode == routed or (routed == 'fwd' and conv.mode is True)
+
+
+@pytest.mark.parametrize('mode', ['wgrad', 'ful', 'fwdx'])
+def test_unknown_conv_mode_raises_as_jax(mode):
+    import jax
+    import jax.numpy as jnp
+    from acquisition_focus_tpu.models.hybrid_unet import Conv3x3x3 as JConv
+    with pytest.raises(ValueError):
+        JConv(features=2, use_pallas=mode).init(jax.random.key(0), jnp.zeros((1, 2, 2, 2, 3)))
+    with pytest.raises(ValueError):
+        Conv3x3x3(3, 2, mode)
 
 
 # ---------------------------------------------------------------- wrappers, no fallback
@@ -220,6 +290,9 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(rng):
     x, w, b = T(rng.normal(size=(1, 2, 8, 4, 128))), T(rng.normal(size=(3, 2, 3, 3, 3))), \
         T(rng.normal(size=(3,)))
     assert torch.equal(conv3d(x, w, b), F.conv3d(x, w, b, padding=1))
+    g = T(rng.normal(size=(1, 3, 8, 4, 128)))
+    assert torch.equal(conv3d_wgrad(x, g),
+                       torch.nn.grad.conv3d_weight(x, (3, 2, 3, 3, 3), g, padding=1))
     assert set(_lib.LAUNCHES.values()) == {0}
 
 
@@ -236,6 +309,8 @@ def test_kernel_launchers_refuse_cpu_tensors(rng):
     with pytest.raises(ValueError, match='CUDA'):
         conv3d_fwd_cuda(torch.zeros(1, 2, 8, 4, 128), torch.zeros(3, 2, 3, 3, 3),
                         torch.zeros(3))
+    with pytest.raises(ValueError, match='CUDA'):
+        conv3d_wgrad_cuda(torch.zeros(1, 2, 8, 4, 128), torch.zeros(1, 3, 8, 4, 128))
 
 
 # ---------------------------------------------------------------- CUDA kernels (card)
@@ -300,6 +375,45 @@ def test_conv3d_kernel_gradients_are_the_library_ones(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70)])
+def test_conv3d_wgrad_kernel_matches_plain(cuda, dtype, ci, co):
+    """K4 against the library's weight gradient in float32 on the same inputs:
+    5e-4 (bf16) and 5e-5 (f32) of the reference's max (chip_smoke.py states the
+    measurements behind them)."""
+    rng = np.random.default_rng(5)
+    x = T(rng.normal(size=(2, ci, 8, 12, 128)), device=cuda).to(dtype)
+    g = T(rng.normal(size=(2, co, 8, 12, 128)), device=cuda).to(dtype)
+    out = conv3d_wgrad_cuda(x, g)
+    ref = torch.nn.grad.conv3d_weight(x.float(), (co, ci, 3, 3, 3), g.float(), padding=1)
+    assert out.dtype == torch.float32
+    close_scaled(out.cpu(), ref.cpu(), 5e-4 if dtype == torch.bfloat16 else 5e-5)
+    assert torch.equal(out, conv3d_wgrad_cuda(x, g))     # no atomics: same bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('mode', ['wg', 'dx', 'full'])
+def test_conv3d_mode_gradients_match_library(cuda, dtype, mode):
+    """K3 as the input gradient and K4 as the weight gradient against the
+    library's gradients of F.conv3d in float32 on the same inputs."""
+    rng = np.random.default_rng(6)
+    x = T(rng.normal(size=(1, 16, 8, 4, 128)), device=cuda).to(dtype).requires_grad_()
+    w = T(rng.normal(size=(24, 16, 3, 3, 3)) * 0.1, device=cuda).requires_grad_()
+    b = T(rng.normal(size=(24,)), device=cuda).requires_grad_()
+    g = T(rng.normal(size=(1, 24, 8, 4, 128)), device=cuda).to(dtype)
+    got = torch.autograd.grad(conv3d(x, w, b, mode in ('dx', 'full'), mode in ('wg', 'full')),
+                              (x, w, b), g)
+    x32 = x.detach().float().requires_grad_()
+    w32 = w.detach().to(dtype).float().requires_grad_()
+    b32 = b.detach().clone().requires_grad_()
+    ref = torch.autograd.grad(F.conv3d(x32, w32, b32, padding=1), (x32, w32, b32), g.float())
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, r in zip(got, ref):
+        close_scaled(a.float().cpu(), r.cpu(), tol)
+
+
+@pytest.mark.cuda
 def test_launch_counts(cuda):
     rng = np.random.default_rng(4)
     _lib.reset_launch_counts()
@@ -312,4 +426,10 @@ def test_launch_counts(cuda):
                                                                   device=cuda),
            torch.zeros(3, device=cuda))
     assert _lib.LAUNCHES == {'plane_resample_fwd': 1, 'plane_resample_bwd': 1,
-                             'volume_resample': 1, 'conv3d_fwd': 1}
+                             'volume_resample': 1, 'conv3d_fwd': 1, 'conv3d_dx': 0,
+                             'conv3d_wgrad': 0}
+    x = torch.zeros(1, 2, 8, 4, 128, device=cuda, requires_grad=True)
+    w = torch.zeros(3, 2, 3, 3, 3, device=cuda, requires_grad=True)
+    conv3d(x, w, torch.zeros(3, device=cuda), True, True).sum().backward()
+    assert (_lib.LAUNCHES['conv3d_fwd'], _lib.LAUNCHES['conv3d_dx'],
+            _lib.LAUNCHES['conv3d_wgrad']) == (2, 1, 1)

@@ -34,7 +34,7 @@ from acquisition_focus_tpu_torch.convert import (
 from acquisition_focus_tpu_torch.engine import train as ttrain
 from acquisition_focus_tpu_torch.engine.optimizers import (
     make_reconstruction_optimizer, make_transform_optimizer)
-from acquisition_focus_tpu_torch.engine.runner import spec_from_config
+from acquisition_focus_tpu_torch.engine.runner import run_dl, spec_from_config
 
 SKINNY = dict(
     n_views=2, num_classes=3, n_active_views=2, view_optimization_mode='opt-all',
@@ -264,12 +264,41 @@ def test_stage_spec_fields_match_jax():
 
 @pytest.mark.parametrize('override', [
     dict(atm_remat=True), dict(unet_remat=True), dict(decoder_save_names=('conv_out',)),
-    dict(theta_source='cached'), dict(model_type='epix2vox'),
-    dict(rotate_slice_to_min_principle=True), dict(slice_fov_vox=(8, 8, 1))])
+    dict(mesh_shape={'data': 2}), dict(model_type='epix2vox'),
+    dict(rotate_slice_to_min_principle=True),
+    dict(label_slice_type='from-segmented', segment_model_path='segmenter')])
 def test_unported_options_refused(override):
-    """Options whose code is not ported raise instead of running without effect."""
+    """Options whose code is not ported raise instead of running without effect:
+    stage options in make_models, run options (a device mesh, the from-segmented
+    segmenter) in run_dl before it builds anything."""
     with pytest.raises(NotImplementedError):
-        ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)))
+        if set(override) <= {f.name for f in dataclasses.fields(ttrain.StageSpec)}:
+            ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)))
+        else:
+            run_dl('.', dict(DEFAULTS, **override), (0, ([], [])))
+
+
+@pytest.mark.parametrize('override', [
+    dict(theta_source='cached'), dict(slice_fov_vox=(8, 8, 1))])
+def test_ported_options_build_and_step(override):
+    """The options this port once refused: a cached-theta step (thetas from the
+    batch, no locnet, no transform update) and slices upsampled to the hires
+    in-plane grid; each builds and takes a finite step."""
+    spec = ttrain.StageSpec(**dict(SKINNY, **override))
+    unet, atms = ttrain.make_models(spec)
+    ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
+    r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
+    t_opt = make_transform_optimizer(atms.parameters(), LR, EPOCHS, UPE)
+    batch = make_batch(spec, np.random.default_rng(0))
+    if spec.theta_source == 'cached':
+        batch['thetas'] = np.broadcast_to(view_affines(np.random.default_rng(1), 2, 1),
+                                          (2, 2, 1, 4, 4)).copy()
+    before = [p.detach().clone() for p in atms.parameters()]
+    metrics = ttrain.train_step(spec, unet, atms, r_opt, t_opt, torch_batch(batch))
+    assert np.isfinite(float(metrics['loss']))
+    frozen = all(torch.equal(a, b) for a, b in zip(before, atms.parameters()))
+    assert frozen == (spec.theta_source == 'cached')
+    assert t_opt[1].last_epoch == (0 if spec.theta_source == 'cached' else 1)
 
 
 def test_spec_from_config_matches_jax():
