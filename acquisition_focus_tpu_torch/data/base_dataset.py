@@ -7,8 +7,8 @@ A case is a dict of numpy arrays: 'label' (D, H, W) int, 'image' (D, H, W) float
 precomputes them. Building cases from NIfTI files (``_load``: hires resample,
 clinical views, centroid registration, prescan) is not ported: the port takes
 cases from :meth:`BaseDataset.from_cases`, or from the dataset cache the JAX
-package writes, through its jax-free ``data/cache.py::load_or_build`` with this
-class as ``dataset_cls`` (a cache miss reaches ``_load`` and raises).
+package writes, through ``data/cache.py::load_or_build`` (the port's copy) with
+this class as ``dataset_cls`` (a cache miss reaches ``_load`` and raises).
 """
 
 import json

@@ -4,7 +4,7 @@ them), in the case layout of ``data/base_dataset.py``."""
 
 import numpy as np
 
-from acquisition_focus_tpu.data.synthetic import make_heart_phantom
+from acquisition_focus_tpu_torch.data.synthetic import make_heart_phantom
 
 
 def phantom_cases(n_cases, shape, spacing, n_views, first_seed=0):

@@ -2,9 +2,10 @@
 epoch loops, metric cadence, checkpointing, stage hand-off.
 
 Same config keys, metric names, cadence and files as the JAX runner. The config
-itself (``DEFAULTS``, ``load_config``) and the run logger (``RunLogger``,
-``get_global_idx``) are the JAX package's own modules, which import no jax, so
-one set of defaults and one JSON config drive both packages.
+(``DEFAULTS``, ``load_config``) and the run logger (``RunLogger``,
+``get_global_idx``) are the port's own copies of the JAX package's modules
+(``engine/config.py``, ``utils/logging.py``), held equal to them by tests, so one
+set of defaults and one JSON config drive both packages.
 
 Random streams: weights come from ``torch.Generator().manual_seed(seed)``; each
 training step's augmentation from a generator keyed by (seed, global_idx * 10000
@@ -22,19 +23,20 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from acquisition_focus_tpu.engine.config import DEFAULTS, load_config
-from acquisition_focus_tpu.utils.logging import RunLogger, get_global_idx
 from acquisition_focus_tpu_torch.engine.checkpoint import (
     checkpoint_exists, load_checkpoint, save_checkpoint)
+from acquisition_focus_tpu_torch.engine.config import DEFAULTS, load_config
 from acquisition_focus_tpu_torch.engine.metrics import (
     accumulate_label_scores, hausdorff_per_class, hausdorff_per_class_device,
     iou_per_class_labels, reduce_label_scores)
 from acquisition_focus_tpu_torch.engine.optimizers import (
     make_reconstruction_optimizer, make_transform_optimizer)
 from acquisition_focus_tpu_torch.engine.train import (
-    StageSpec, eval_step, init_params, make_models, theta_pass, train_step)
+    StageSpec, eval_step, init_params, make_models, resolve_device, theta_pass,
+    train_step)
 from acquisition_focus_tpu_torch.geometry.clinical_views import get_class_volumes
 from acquisition_focus_tpu_torch.ops.affine import affine_zooms
+from acquisition_focus_tpu_torch.utils.logging import RunLogger, get_global_idx
 
 __all__ = ['DEFAULTS', 'load_config', 'spec_from_config', 'run_dl']
 
@@ -124,12 +126,10 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
            test_dataset=None, run_test_once_only=False, run_name='run', device=None):
     """Train one stage on one fold. Returns the best save path (if any).
 
-    ``device``: where the models and batches live (default: the GPU when there
-    is one, else the CPU)."""
+    ``device``: where the models and batches live; ``None`` is the card, and
+    without CUDA only an explicit ``device='cpu'`` runs."""
     check_ported_config(config)
-    if device is None:
-        device = 'cuda' if torch.cuda.is_available() else 'cpu'
-    device = torch.device(device)
+    device = resolve_device(device)
     fold_idx, (train_idxs, val_idxs) = fold_properties
     num_classes = len(training_dataset.label_tags) if training_dataset \
         else len(test_dataset.label_tags)
@@ -410,7 +410,7 @@ def _store_epoch_artifacts(run_dir, phase, epx, epx_affines, epx_inputs, n_views
         pickle.dump(epx_affines, f)
     try:
         # imported here: the plotting stack may be missing where the run trains
-        from acquisition_focus_tpu.utils.visualize import (
+        from acquisition_focus_tpu_torch.utils.visualize import (
             save_frameless_image, slice_input_mosaic)
         inputs = np.stack(list(epx_inputs.values())).astype(np.float32)
         mosaic = slice_input_mosaic(inputs, n_views)

@@ -102,9 +102,21 @@ def _check_ported(spec):
         raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
 
 
+def resolve_device(device=None):
+    """The device an entry point runs on: ``None`` is the card. Without CUDA only
+    an explicit CPU device is taken; nothing falls back to the CPU by itself."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device (torch.cuda.is_available() is False): pass "
+                           "device='cpu' to run on the CPU")
+    return device
+
+
 def make_models(spec: StageSpec, device=None):
-    """(HybridUnet, nn.ModuleList of n_views AffineTransformModules)."""
+    """(HybridUnet, nn.ModuleList of n_views AffineTransformModules) on ``device``
+    (``None``: the card; see :func:`resolve_device`)."""
     _check_ported(spec)
+    device = resolve_device(device)
     unet = HybridUnet(spec.n_views, spec.num_classes, tuple(spec.base_features),
                       dtype=spec.dtype, use_pallas_conv=spec.use_pallas_conv3d)
     atms = nn.ModuleList([

@@ -1,7 +1,6 @@
 """The per-fold stage sweep (torch port of ``stage_sweep_run`` in the JAX package's
-``main.py``), over the JAX package's jax-free stage machinery
-(``engine/stages.py``: ``get_std_stages``, ``merge_stage_config``), imported, not
-copied.
+``main.py``), over the port's own copy of the stage machinery
+(``engine/stages.py``: ``get_std_stages``, ``merge_stage_config``).
 
 The CLI (``main()``, ``build_fold_iter``) needs the dataset build, which is not
 ported yet.
@@ -10,10 +9,10 @@ ported yet.
 import json
 from pathlib import Path
 
-from acquisition_focus_tpu.engine.config import DotDict
-from acquisition_focus_tpu.engine.stages import get_std_stages, merge_stage_config
 from acquisition_focus_tpu_torch.engine.checkpoint import checkpoint_exists
+from acquisition_focus_tpu_torch.engine.config import DotDict
 from acquisition_focus_tpu_torch.engine.runner import run_dl
+from acquisition_focus_tpu_torch.engine.stages import get_std_stages, merge_stage_config
 
 __all__ = ['get_std_stages', 'stage_sweep_run']
 
@@ -32,7 +31,7 @@ def _save_sweep_state(path, state):
 
 
 def stage_sweep_run(base_dir, run_name, config, fold_properties, stages,
-                    training_dataset, test_dataset, run_test_once_only):
+                    training_dataset, test_dataset, run_test_once_only, *, device='cuda'):
     """Per-fold stage sweep: each stage of ``stages`` (``get_std_stages``) runs
     ``run_dl`` on its merged config; the runner writes the stage's best
     ``save_path`` back, and the next ``opt_view`` stage loads it as its
@@ -43,7 +42,10 @@ def stage_sweep_run(base_dir, run_name, config, fold_properties, stages,
     a relaunch) and skipped; a stage interrupted mid-training resumes from its
     own best checkpoint through the runner's full-state restore. A completed
     stage's record also holds the ``transform_model_checkpoint_path`` it loaded
-    (a key the JAX package's sweep state does not have, and does not read)."""
+    (a key the JAX package's sweep state does not have, and does not read).
+
+    ``device``: where every stage's run lives (``run_dl``'s ``device``); the card
+    unless the caller asks for ``'cpu'``."""
     state_path = config.get('sweep_state_path')
     fold_key = f"fold-{fold_properties[0]}"
     state = _load_sweep_state(state_path) if state_path else None
@@ -83,7 +85,8 @@ def stage_sweep_run(base_dir, run_name, config, fold_properties, stages,
         print(f"Running {stage_run_name}")
         run_dl(base_dir, stage_config, fold_properties, stage=stage,
                training_dataset=training_dataset, test_dataset=test_dataset,
-               run_test_once_only=run_test_once_only, run_name=stage_run_name)
+               run_test_once_only=run_test_once_only, run_name=stage_run_name,
+               device=device)
 
         if state is not None:
             state['completed'][stage_key] = {

@@ -32,9 +32,9 @@ _SIGNATURES = {
     'afk_plane_resample_fwd': [_P, _P, _P] + [_I] * 5 + [_P],
     'afk_plane_resample_bwd': [_P] * 5 + [_I] * 5 + [_P],
     'afk_volume_resample': [_P] * 3 + [_I] * 10 + [_P],
-    'afk_conv3d_fwd': [_P] * 4 + [_I] * 7 + [_P],
-    'afk_conv3d_wgrad_workspace': [_I] * 5 + [_P],
-    'afk_conv3d_wgrad': [_P] * 4 + [_I] * 7 + [_P],
+    'afk_conv3d_fwd': [_P] * 5 + [_I] * 8 + [_P],
+    'afk_conv3d_wgrad_workspace': [_I] * 6 + [_P],
+    'afk_conv3d_wgrad': [_P] * 5 + [_I] * 7 + [_P],
 }
 
 LAUNCHES = {'plane_resample_fwd': 0, 'plane_resample_bwd': 0,

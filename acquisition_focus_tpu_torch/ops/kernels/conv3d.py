@@ -40,6 +40,34 @@ def supports_conv3d(x_shape, w_shape):
     return W % 128 == 0 and D % _TZ == 0 and H % _TY == 0
 
 
+def _channels_last_scratch(x, c8):
+    """bf16 scratch for the kernels' channels-last copy of ``x`` (channels padded
+    to ``c8``); an empty placeholder for float32, which reads ``x`` directly."""
+    B, _, D, H, W = x.shape
+    n = B * D * H * W * c8 if x.dtype == torch.bfloat16 else 0
+    return torch.empty(n, dtype=x.dtype, device=x.device)
+
+
+def _bf16_operand(name, t):
+    """A bf16 NCDHW operand of K3/K4, read in 16-byte pieces (by TMA, or by the
+    channels-last pass): W a multiple of 8 and a 16-byte aligned base (a view into
+    a larger tensor is copied)."""
+    if t.shape[-1] % 8:
+        raise ValueError(f"{name}: W = {t.shape[-1]} is not a multiple of 8")
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def kernel_weights(weight, dtype):
+    """K3's weight layout: bf16 (27, Co, Ci8), K-major with Ci zero-padded to a
+    multiple of 8 for the TMA loads; float32 (27, Ci, Co). Returns (wt, ci_pad)."""
+    Co, Ci = weight.shape[:2]
+    if dtype != torch.bfloat16:
+        return weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(27, Ci, Co).contiguous(), Ci
+    ci_pad = -(-Ci // 8) * 8
+    wt = weight.to(dtype).permute(2, 3, 4, 0, 1).reshape(27, Co, Ci)
+    return F.pad(wt, (0, ci_pad - Ci)).contiguous(), ci_pad
+
+
 def conv3d_fwd_cuda(x, weight, bias, count_as='conv3d_fwd'):
     """K3 launch: (B, Ci, D, H, W) x (Co, Ci, 3, 3, 3) + (Co,) -> (B, Co, D, H, W)
     in ``x.dtype`` (f32 accumulation, bias added in f32). The launch counts under
@@ -50,14 +78,18 @@ def conv3d_fwd_cuda(x, weight, bias, count_as='conv3d_fwd'):
     if weight.shape != (Co, Ci, 3, 3, 3) or bias.shape != (Co,):
         raise ValueError(f"bad shapes: weight {tuple(weight.shape)}, "
                          f"bias {tuple(bias.shape)} for x {tuple(x.shape)}")
-    wt = weight.to(x.dtype).permute(2, 3, 4, 1, 0).contiguous()   # (3,3,3,Ci,Co)
+    is_bf16 = x.dtype == torch.bfloat16
+    if is_bf16:
+        x = _bf16_operand('x', x)
+    wt, ci_pad = kernel_weights(weight, x.dtype)
     b32 = bias.float().contiguous()
     _lib.check_cuda_tensor('weight', wt, (x.dtype,))
     _lib.check_cuda_tensor('bias', b32, (torch.float32,))
     out = torch.empty((B, Co, D, H, W), dtype=x.dtype, device=x.device)
+    xcl = _channels_last_scratch(x, ci_pad)
     _lib.launch(count_as, 'afk_conv3d_fwd',
-                x.data_ptr(), wt.data_ptr(), b32.data_ptr(), out.data_ptr(),
-                B, Ci, Co, D, H, W, int(x.dtype == torch.bfloat16))
+                x.data_ptr(), wt.data_ptr(), b32.data_ptr(), out.data_ptr(), xcl.data_ptr(),
+                B, Ci, Co, D, H, W, int(is_bf16), ci_pad)
     return out
 
 
@@ -71,13 +103,18 @@ def conv3d_wgrad_cuda(x, g):
     _lib.check_cuda_tensor('g', g, (x.dtype,))
     if g.shape != (B, Co, D, H, W):
         raise ValueError(f"cotangent {tuple(g.shape)} does not match x {tuple(x.shape)}")
+    is_bf16 = x.dtype == torch.bfloat16
+    if is_bf16:
+        x, g = _bf16_operand('x', x), _bf16_operand('g', g)
     ws = (ctypes.c_int * 2)()
-    _lib.library().afk_conv3d_wgrad_workspace(B, Ci, Co, D, H, ctypes.addressof(ws))
+    _lib.library().afk_conv3d_wgrad_workspace(B, Ci, Co, D, H, int(is_bf16),
+                                              ctypes.addressof(ws))
     part = torch.empty(ws[0] * ws[1], dtype=torch.float32, device=x.device)
     dw = torch.empty((Co, Ci, 3, 3, 3), dtype=torch.float32, device=x.device)
+    xcl = _channels_last_scratch(x, -(-Ci // 8) * 8)
     _lib.launch('conv3d_wgrad', 'afk_conv3d_wgrad',
-                x.data_ptr(), g.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                B, Ci, Co, D, H, W, int(x.dtype == torch.bfloat16))
+                x.data_ptr(), g.data_ptr(), xcl.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                B, Ci, Co, D, H, W, int(is_bf16))
     return dw
 
 

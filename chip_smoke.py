@@ -31,8 +31,14 @@
    version.
 6. The last line is {"ok": true, "device": {...}}; the line before it lists the
    kernels as JSON: launches during the sweep, the largest error against the plain
-   version, and the bf16 kernel and plain times summed over the shapes checked.
-   Any failure raises and exits non-zero.
+   version, the bf16 kernel and plain times summed over the shapes checked, the
+   least time the card could take for the same work (``bound_ms``: each input
+   read and each output written once at 3.35 TB/s, or the operations at the
+   peak rate of their type, whichever is larger; ``bound_by`` says which) and,
+   for the three conv uses, the one PyTorch call that computes the same function
+   (``library_ms``: ``F.conv3d``, ``conv3d_input``, ``conv3d_weight``; null for
+   K1 and K2, which no single call computes). Any failure raises and exits
+   non-zero.
 """
 
 import json
@@ -48,6 +54,9 @@ import numpy as np
 import torch
 
 WARMUP = 2
+HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
+BF16_FLOP_S = 989e12        # dense bf16 tensor-core peak
+F32_FLOP_S = 67e12          # float32 peak outside the tensor cores
 
 
 def log(*args):
@@ -81,11 +90,33 @@ def rotations(rng, n, offset):
     return torch.tensor(out, dtype=torch.float32, device='cuda')
 
 
+def bound(nbytes, flops, peak):
+    """(ms, 'bytes' or 'operations'): the least time for moving ``nbytes`` once and
+    doing ``flops`` at ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, flops / peak * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def conv_flops(x_shape, co):
+    """2 B D H W 27 Ci Co: the 3^3 conv's multiply-adds, whichever GEMM it is."""
+    B, ci, D, H, W = x_shape
+    return 2 * B * D * H * W * 27 * ci * co
+
+
 class Checker:
-    """Collects each kernel's comparison with its plain version."""
+    """Collects each kernel's comparison with its plain version, its times and
+    its bound."""
 
     def __init__(self):
         self.rows = {}
+
+    def add_bound(self, kernel, nbytes, flops, peak):
+        """Add one checked shape's bound to the kernel's (summed like its times)."""
+        ms, by = bound(nbytes, flops, peak)
+        row = self.rows.setdefault(kernel, {'max_abs_err': 0.0})
+        row['bound_ms'] = row.get('bound_ms', 0.0) + ms
+        row['bound_by'] = by
+        return ms
 
     def compare(self, kernel, what, got, ref, tol, normalize=False):
         got, ref = got.float(), ref.float()
@@ -106,13 +137,22 @@ class Checker:
         row['max_abs_err'] = max(row['max_abs_err'], err)
         return err
 
-    def timed(self, kernel, what, kernel_fn, plain_fn, iters, main=False):
-        ms, plain_ms = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, iters)
-        log(f"  {kernel:20s} {what:30s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+    def timed(self, kernel, what, kernel_fn, plain_fn, iters, main=False, library=False):
+        """Time the kernel and its plain version in turns (plain, kernel, kernel,
+        plain; the mean of each pair). ``library``: the plain version is one
+        PyTorch call computing the same function, also reported as library_ms."""
+        p0, k0 = cuda_ms(plain_fn, iters), cuda_ms(kernel_fn, iters)
+        k1, p1 = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, iters)
+        ms, plain_ms = (k0 + k1) / 2, (p0 + p1) / 2
+        log(f"  {kernel:20s} {what:30s} kernel {ms:.4f} ms ({k0:.4f}, {k1:.4f})  plain "
+            f"{plain_ms:.4f} ms ({p0:.4f}, {p1:.4f})")
         if main:
             row = self.rows.setdefault(kernel, {'max_abs_err': 0.0})
             row['ms'] = row.get('ms', 0.0) + ms
             row['plain_ms'] = row.get('plain_ms', 0.0) + plain_ms
+            if library:
+                row['library_ms'] = row.get('library_ms', 0.0) + plain_ms
+        return ms
 
 
 def check_volume_resample(chk, rng):
@@ -134,6 +174,12 @@ def check_volume_resample(chk, rng):
                   lambda: volume_resample_cuda(vol, theta, out),
                   lambda: grid_sample(vol, theta, out), 10,
                   main=dtype == torch.bfloat16)
+        if dtype == torch.bfloat16:
+            # per output voxel: its sample point (~30 operations), then 8 weights
+            # and 7 adds per channel
+            n_vox = got.shape[0] * math.prod(out)
+            chk.add_bound('volume_resample', vol.numel() * 2 + got.numel() * 2,
+                          n_vox * (30 + 15 * got.shape[1]), F32_FLOP_S)
         del vol, got, ref
 
 
@@ -172,6 +218,15 @@ def check_plane_resample(chk, rng):
 
             main = dtype == torch.bfloat16
             iters = 20 if S < 64 else 10
+            if main:
+                # per output voxel: its plane coordinates (~20 operations), then per
+                # channel a bilinear tap forward (7) and its adjoint backward (~20)
+                el = slices.element_size()
+                n_vox = 2 * S ** 3
+                chk.add_bound('plane_resample_fwd', slices.numel() * el + g.numel() * el,
+                              n_vox * (20 + 7 * C), F32_FLOP_S)
+                chk.add_bound('plane_resample_bwd', g.numel() * el + 2 * slices.numel() * el,
+                              n_vox * (20 + 20 * C), F32_FLOP_S)
             with torch.no_grad():
                 chk.timed('plane_resample_fwd', name,
                           lambda: plane_resample_fwd(slices, coefs, S),
@@ -188,10 +243,20 @@ def check_plane_resample(chk, rng):
             del slices, g, out_k, out_p, ds_k, ds_p, out_graph
 
 
+def report_conv(chk, kernel, name, ms, x_shape, co, nbytes):
+    """Add a conv use's bound (its operations at the bf16 peak, or its bytes) and
+    print its rate and share of that bound."""
+    flops = conv_flops(x_shape, co)
+    b_ms = chk.add_bound(kernel, nbytes, flops, BF16_FLOP_S)
+    log(f"  {kernel:20s} {name:30s} {flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
+        f"({chk.rows[kernel]['bound_by']}), {100 * b_ms / ms:.1f}% of the bound")
+
+
 def check_conv3d(chk, rng):
     """K3 at the decoder's full-resolution convs: (2, 96, 128^3) -> 48 and
     (2, 48, 128^3) -> 48; the kernel's time includes the wrapper's weight layout
-    conversion. Tolerances on errors divided by the reference's max."""
+    conversion and its channels-last staging of x. Tolerances on errors divided
+    by the reference's max."""
     import torch.nn.functional as F
     from acquisition_focus_tpu_torch.ops.kernels.conv3d import conv3d
     for ci in (96, 48):
@@ -206,9 +271,12 @@ def check_conv3d(chk, rng):
                 ref = F.conv3d(x, w.to(dtype), b.to(dtype), padding=1)
                 chk.compare('conv3d_fwd', f'{name} out', got, ref, tol, True)
                 del got, ref
-                chk.timed('conv3d_fwd', name, lambda: conv3d(x, w, b),
-                          lambda: F.conv3d(x, w.to(dtype), b.to(dtype), padding=1),
-                          3, main=dtype == torch.bfloat16)
+                ms = chk.timed('conv3d_fwd', name, lambda: conv3d(x, w, b),
+                               lambda: F.conv3d(x, w.to(dtype), b.to(dtype), padding=1),
+                               3, main=dtype == torch.bfloat16, library=True)
+                if dtype == torch.bfloat16:
+                    report_conv(chk, 'conv3d_fwd', name, ms, x.shape, 48,
+                                2 * (x.numel() + 2 * 48 * 128 ** 3) + w.numel() * 2)
             del x
 
 
@@ -220,11 +288,12 @@ def check_conv3d_grads(chk):
     with float32 weights as the model holds them. Each is held against the
     library's gradient in float32 (TF32 off) on the same inputs, so the bf16 check
     sees the kernel's own error and not the library's bf16 rounding; errors divided
-    by the reference's max. Tolerances from the first chip run (NVIDIA H100, 700 W):
-    K4 measured 7.6e-05 (bf16) and 5.4e-06 (f32), K3-as-dx 3.2e-03 (bf16, one bf16
-    rounding of the output) and 2.2e-06 (f32). Times are of the kernels' direct
-    launches against the library in the same dtype (the gradients the 'fwd' mode
-    takes)."""
+    by the reference's max. Tolerances against what the kernels measured on an NVIDIA
+    H100 at 700 W: K4 5e-4 (bf16, measured up to 9.1e-05) and 5e-5 (f32, 5.4e-06),
+    K3-as-dx 1e-2 (bf16, one bf16 rounding of the output: up to 3.7e-03) and 1e-4
+    (f32, 2.2e-06). Times are of the kernels' direct launches against the library
+    in the same dtype (the gradients the 'fwd' mode takes), which is also each
+    row's library_ms."""
     from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
         conv3d, conv3d_fwd_cuda, conv3d_wgrad_cuda)
     grad_input, grad_weight = torch.nn.grad.conv3d_input, torch.nn.grad.conv3d_weight
@@ -250,10 +319,16 @@ def check_conv3d_grads(chk):
             del dx, dw
             zb = torch.zeros(ci, device='cuda')
             w_t = w.flip(2, 3, 4).transpose(0, 1)
-            chk.timed('conv3d_dx', name, lambda: conv3d_fwd_cuda(g, w_t, zb, 'conv3d_dx'),
-                      lambda: grad_input(x.shape, w, g, padding=1), 3, main)
-            chk.timed('conv3d_wgrad', name, lambda: conv3d_wgrad_cuda(x, g),
-                      lambda: grad_weight(x, w_shape, g, padding=1), 3, main)
+            ms_dx = chk.timed('conv3d_dx', name,
+                              lambda: conv3d_fwd_cuda(g, w_t, zb, 'conv3d_dx'),
+                              lambda: grad_input(x.shape, w, g, padding=1), 3, main, True)
+            ms_dw = chk.timed('conv3d_wgrad', name, lambda: conv3d_wgrad_cuda(x, g),
+                              lambda: grad_weight(x, w_shape, g, padding=1), 3, main, True)
+            if main:
+                report_conv(chk, 'conv3d_dx', name, ms_dx, g.shape, ci,
+                            2 * (g.numel() + x.numel()) + w.numel() * 2)
+                report_conv(chk, 'conv3d_wgrad', name, ms_dw, x.shape, 48,
+                            2 * (x.numel() + g.numel()) + 4 * w.numel())
             del x, g
             torch.cuda.empty_cache()
 
@@ -620,18 +695,20 @@ def main():
                             'acquisition_focus_tpu/ops/pallas/volume_resample.py:299'),
         'conv3d_fwd': ('acquisition_focus_tpu_torch/csrc/conv3d.cu',
                        'acquisition_focus_tpu/ops/pallas/conv3d.py:143'),
+        # K3 launched as the conv's input gradient ('dx'/'full' modes)
+        'conv3d_dx': ('acquisition_focus_tpu_torch/csrc/conv3d.cu',
+                      'acquisition_focus_tpu/ops/pallas/conv3d.py:143'),
         'conv3d_wgrad': ('acquisition_focus_tpu_torch/csrc/conv3d_wgrad.cu',
                          'acquisition_focus_tpu/ops/pallas/conv3d.py:248'),
     }
     kernels = [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
                 'launches': launches[name],
                 'max_abs_err': chk.rows[name]['max_abs_err'],
-                'ms': chk.rows[name]['ms'], 'plain_ms': chk.rows[name]['plain_ms']}
+                'ms': chk.rows[name]['ms'], 'plain_ms': chk.rows[name]['plain_ms'],
+                'bound_ms': chk.rows[name]['bound_ms'],
+                'bound_by': chk.rows[name]['bound_by'],
+                'library_ms': chk.rows[name].get('library_ms')}
                for name, (src, rep) in sources.items()]
-    # K3 run as the conv's input gradient: its launches, error and times
-    dx = chk.rows['conv3d_dx']
-    kernels[3].update(dx_launches=launches['conv3d_dx'], dx_max_abs_err=dx['max_abs_err'],
-                      dx_ms=dx['ms'], dx_plain_ms=dx['plain_ms'])
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from acquisition_focus_tpu_torch.ops.kernels import _lib, affine_coefficients
 from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3
 from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
-    conv3d, conv3d_fwd_cuda, conv3d_wgrad, conv3d_wgrad_cuda, supports_conv3d)
+    conv3d, conv3d_fwd_cuda, conv3d_wgrad, conv3d_wgrad_cuda, kernel_weights,
+    supports_conv3d)
 from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
     plane_resample, plane_resample_bwd, plane_resample_fwd)
 from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
@@ -199,7 +200,7 @@ def test_supports_conv3d_matches_pallas_guard(shape, ok):
 def test_hybrid_unet_routes_only_dec0_through_the_kernel():
     from acquisition_focus_tpu_torch.engine.runner import DEFAULTS, spec_from_config
     from acquisition_focus_tpu_torch.engine.train import make_models
-    unet, _ = make_models(spec_from_config(DEFAULTS, 6, 3))
+    unet, _ = make_models(spec_from_config(DEFAULTS, 6, 3), 'cpu')
     S = 128
     routed = [s for s, stage in enumerate(unet.decoder)
               if stage.a_conv.mode
@@ -277,6 +278,24 @@ def test_unknown_conv_mode_raises_as_jax(mode):
         Conv3x3x3(3, 2, mode)
 
 
+@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 96)])
+def test_kernel_weights_layout(rng, ci, co):
+    """K3's weights as the kernels read them: bf16 (27, Co, Ci8), K-major with Ci
+    zero-padded to a multiple of 8 (the TMA loads' 16-byte stride rule), and
+    float32 (27, Ci, Co); tap = 9 kd + 3 kh + kw."""
+    w = T(rng.normal(size=(co, ci, 3, 3, 3)))
+    wt, ci_pad = kernel_weights(w, torch.bfloat16)
+    assert wt.dtype == torch.bfloat16 and wt.is_contiguous()
+    assert ci_pad % 8 == 0 and ci_pad - ci < 8 and wt.shape == (27, co, ci_pad)
+    assert not wt[..., ci:].any()
+    wf, n = kernel_weights(w, torch.float32)
+    assert n == ci and wf.shape == (27, ci, co)
+    for kd, kh, kw in ((0, 0, 0), (1, 2, 0), (2, 1, 2)):
+        tap = 9 * kd + 3 * kh + kw
+        assert torch.equal(wt[tap, :, :ci], w[:, :, kd, kh, kw].to(torch.bfloat16))
+        assert torch.equal(wf[tap], w[:, :, kd, kh, kw].t())
+
+
 # ---------------------------------------------------------------- wrappers, no fallback
 
 def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(rng):
@@ -349,7 +368,7 @@ def test_volume_resample_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70)])
+@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70), (48, 96)])
 def test_conv3d_kernel_matches_plain(cuda, dtype, ci, co):
     rng = np.random.default_rng(2)
     x = T(rng.normal(size=(2, ci, 8, 12, 128)), device=cuda).to(dtype)
@@ -404,6 +423,67 @@ def test_conv3d_mode_gradients_match_library(cuda, dtype, mode):
     g = T(rng.normal(size=(1, 24, 8, 4, 128)), device=cuda).to(dtype)
     got = torch.autograd.grad(conv3d(x, w, b, mode in ('dx', 'full'), mode in ('wg', 'full')),
                               (x, w, b), g)
+    x32 = x.detach().float().requires_grad_()
+    w32 = w.detach().to(dtype).float().requires_grad_()
+    b32 = b.detach().clone().requires_grad_()
+    ref = torch.autograd.grad(F.conv3d(x32, w32, b32, padding=1), (x32, w32, b32), g.float())
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for a, r in zip(got, ref):
+        close_scaled(a.float().cpu(), r.cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ci,co', [(96, 48), (48, 96)])
+def test_conv3d_kernels_batch_one(cuda, ci, co):
+    """K3 and K4 in bf16 at batch 1 (the evaluation batch)."""
+    rng = np.random.default_rng(7)
+    x = T(rng.normal(size=(1, ci, 8, 12, 128)), device=cuda).to(torch.bfloat16)
+    w = T(rng.normal(size=(co, ci, 3, 3, 3)) / np.sqrt(27 * ci), device=cuda)
+    b = T(rng.normal(size=(co,)), device=cuda)
+    g = T(rng.normal(size=(1, co, 8, 12, 128)), device=cuda).to(torch.bfloat16)
+    close_scaled(conv3d_fwd_cuda(x, w, b).float().cpu(),
+                 F.conv3d(x.float(), w.to(torch.bfloat16).float(), b, padding=1).cpu(), 1e-2)
+    close_scaled(conv3d_wgrad_cuda(x, g).cpu(),
+                 torch.nn.grad.conv3d_weight(x.float(), (co, ci, 3, 3, 3), g.float(),
+                                             padding=1).cpu(), 5e-4)
+
+
+@pytest.mark.cuda
+def test_conv3d_kernels_zero_fill_on_faces(cuda):
+    """Input nonzero only on the volume's faces (d, h, w = 0 and 127): a tap that
+    reads past a face must see SAME padding (zeros), not the neighbouring row or
+    channel, in K3 (forward) and K4 (weight gradient), bf16."""
+    rng = np.random.default_rng(8)
+    S, ci, co = 128, 16, 24
+    face = np.zeros((S, S, S), bool)
+    for ax in range(3):
+        idx = [slice(None)] * 3
+        for edge in (0, S - 1):
+            idx[ax] = edge
+            face[tuple(idx)] = True
+    x = T(rng.normal(size=(1, ci, S, S, S)) * face, device=cuda).to(torch.bfloat16)
+    w = T(rng.normal(size=(co, ci, 3, 3, 3)) / np.sqrt(27 * ci), device=cuda)
+    b = torch.zeros(co, device=cuda)
+    g = T(rng.normal(size=(1, co, S, S, S)), device=cuda).to(torch.bfloat16)
+    close_scaled(conv3d_fwd_cuda(x, w, b).float().cpu(),
+                 F.conv3d(x.float(), w.to(torch.bfloat16).float(), b, padding=1).cpu(), 1e-2)
+    close_scaled(conv3d_wgrad_cuda(x, g).cpu(),
+                 torch.nn.grad.conv3d_weight(x.float(), (co, ci, 3, 3, 3), g.float(),
+                                             padding=1).cpu(), 5e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_conv3d_full_mode_gradients_two_w_tiles(cuda, dtype):
+    """'full' mode (K3 forward and as the input gradient, K4) where a row spans two
+    128-voxel w tiles (W 256) and the input gradient has more channels than the
+    cotangent, against the library's float32 gradients."""
+    rng = np.random.default_rng(9)
+    x = T(rng.normal(size=(1, 24, 8, 4, 256)), device=cuda).to(dtype).requires_grad_()
+    w = T(rng.normal(size=(16, 24, 3, 3, 3)) * 0.1, device=cuda).requires_grad_()
+    b = T(rng.normal(size=(16,)), device=cuda).requires_grad_()
+    g = T(rng.normal(size=(1, 16, 8, 4, 256)), device=cuda).to(dtype)
+    got = torch.autograd.grad(conv3d(x, w, b, True, True), (x, w, b), g)
     x32 = x.detach().float().requires_grad_()
     w32 = w.detach().to(dtype).float().requires_grad_()
     b32 = b.detach().clone().requires_grad_()

@@ -181,7 +181,7 @@ def test_init_matches_flax_distributions():
               prescan_fov_vox=(32,) * 3,
               base_features=(8, 16, 16), locnet_width=4, compute_dtype='float32')
     up, ap = jtrain.init_params(jtrain.StageSpec(**kw), jax.random.key(0))
-    unet, atms = ttrain.make_models(ttrain.StageSpec(**kw))
+    unet, atms = ttrain.make_models(ttrain.StageSpec(**kw), 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
     refs = dict(unet_state_dict(to_np(up)))
     for v, sd in enumerate(atm_state_dicts(to_np(ap))):

@@ -130,7 +130,7 @@ def test_stage_sweep_chains_checkpoints_and_resumes(tmp_path, datasets, capsys):
                      sweep_state_path=str(state_path))
     fold = (0, ([0, 1], [4]))
     assert stage_sweep_run(str(tmp_path), 'sw', cfg, fold, get_std_stages(cfg), train,
-                           test, False) is None
+                           test, False, device='cpu') is None
     state = json.loads(state_path.read_text())
     keys = list(state['completed'])
     assert keys == ['fold-0/opt_view0', 'fold-0/opt_view1', 'fold-0/ref']
@@ -144,7 +144,8 @@ def test_stage_sweep_chains_checkpoints_and_resumes(tmp_path, datasets, capsys):
     assert not all(torch.equal(v0[n], v1[n]) for n in v0 if n.startswith('1.'))
 
     capsys.readouterr()
-    stage_sweep_run(str(tmp_path), 'sw', cfg, fold, get_std_stages(cfg), train, test, False)
+    stage_sweep_run(str(tmp_path), 'sw', cfg, fold, get_std_stages(cfg), train, test, False,
+                    device='cpu')
     out = capsys.readouterr().out
     assert [f"Skipping completed stage {k} (save_path={s})" for k, s in zip(keys, saves)] \
         == [line for line in out.splitlines() if line.startswith('Skipping')]
@@ -172,11 +173,12 @@ def test_metrics_jsonl_keys_match_jax(tmp_path, datasets):
 
 
 def test_dataset_cache_written_by_jax_loads(tmp_path):
-    """The JAX package's ``load_or_build`` writes its pickle of numpy cases; given
-    the port's dataset class, the same jax-free function reads it back into it.
-    A miss needs the dataset build, which the port does not have yet."""
+    """The JAX package's ``load_or_build`` writes its pickle of numpy cases; the
+    port's copy of it, given the port's dataset class, reads it back into it. A
+    miss needs the dataset build, which the port does not have yet."""
     from acquisition_focus_tpu.data.base_dataset import BaseDataset as JBaseDataset
-    from acquisition_focus_tpu.data.cache import load_or_build
+    from acquisition_focus_tpu.data.cache import load_or_build as jload_or_build
+    from acquisition_focus_tpu_torch.data.cache import load_or_build
 
     cases = phantom_cases(2, (16,) * 3, (1.5,) * 3, 2)
 
@@ -187,7 +189,7 @@ def test_dataset_cache_written_by_jax_loads(tmp_path):
     (tmp_path / 'metadata').mkdir()
     (tmp_path / 'metadata' / 'data_split.json').write_text('{"train_files": []}')
     cfg = load_config(overrides=dict(RUN, use_caching=True))
-    built = load_or_build(PhantomSet, tmp_path, cfg, 'train', cache_dir=tmp_path / 'cache')
+    built = jload_or_build(PhantomSet, tmp_path, cfg, 'train', cache_dir=tmp_path / 'cache')
 
     PhantomSet = type('PhantomSet', (BaseDataset,), {})
     ds = load_or_build(PhantomSet, tmp_path, cfg, 'train', cache_dir=tmp_path / 'cache')

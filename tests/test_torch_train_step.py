@@ -77,7 +77,7 @@ def make_batch(spec, rng, B=1):
 
 
 def torch_setup(spec, up_np, ap_np):
-    unet, atms = ttrain.make_models(spec)
+    unet, atms = ttrain.make_models(spec, 'cpu')
     load_flax_params(unet, atms, up_np, ap_np)
     r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
     t_opt = make_transform_optimizer(atms.parameters(), LR, EPOCHS, UPE)
@@ -223,7 +223,7 @@ def test_frozen_views_bit_unchanged():
     spec = ttrain.StageSpec(**dict(SKINNY, n_views=3, n_active_views=2,
                                    view_optimization_mode='opt-current-fix-previous'))
     torch.manual_seed(0)
-    unet, atms = ttrain.make_models(spec)
+    unet, atms = ttrain.make_models(spec, 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
     before = [{k: v.clone() for k, v in m.state_dict().items()} for m in atms]
     r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
@@ -241,7 +241,7 @@ def test_frozen_views_bit_unchanged():
 def test_augmented_step_runs_and_learns():
     """Augmentation on (torch.Generator draws): finite losses that fall."""
     spec = ttrain.StageSpec(**dict(SKINNY, augment_input=True))
-    unet, atms = ttrain.make_models(spec)
+    unet, atms = ttrain.make_models(spec, 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
     r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
     t_opt = make_transform_optimizer(atms.parameters(), LR, EPOCHS, UPE)
@@ -273,9 +273,9 @@ def test_unported_options_refused(override):
     segmenter) in run_dl before it builds anything."""
     with pytest.raises(NotImplementedError):
         if set(override) <= {f.name for f in dataclasses.fields(ttrain.StageSpec)}:
-            ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)))
+            ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)), 'cpu')
         else:
-            run_dl('.', dict(DEFAULTS, **override), (0, ([], [])))
+            run_dl('.', dict(DEFAULTS, **override), (0, ([], [])), device='cpu')
 
 
 @pytest.mark.parametrize('override', [
@@ -285,7 +285,7 @@ def test_ported_options_build_and_step(override):
     batch, no locnet, no transform update) and slices upsampled to the hires
     in-plane grid; each builds and takes a finite step."""
     spec = ttrain.StageSpec(**dict(SKINNY, **override))
-    unet, atms = ttrain.make_models(spec)
+    unet, atms = ttrain.make_models(spec, 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
     r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
     t_opt = make_transform_optimizer(atms.parameters(), LR, EPOCHS, UPE)
@@ -311,7 +311,7 @@ def test_spec_from_config_matches_jax():
 
 def test_full_width_models_build():
     """The default configuration's modules construct at reference widths."""
-    unet, atms = ttrain.make_models(spec_from_config(DEFAULTS, 6, 3))
+    unet, atms = ttrain.make_models(spec_from_config(DEFAULTS, 6, 3), 'cpu')
     assert len(atms) == 3
     assert unet.seg_head.weight.shape == (6, 48, 1, 1, 1)
     assert unet.decoder[0].a_conv.weight.shape == (48, 96, 3, 3, 3)
