@@ -16,9 +16,11 @@ def affine_coefficients(theta, out_dhw, in_dhw):
     do, ho, wo = (float(s) for s in out_dhw)
     D, H, W = in_dhw
     a = theta[:, :3, :4].float()
-    n = a.new_tensor([W, H, D])[None, :]
     s0 = (a[..., 0] * (1.0 / wo - 1.0) + a[..., 1] * (1.0 / ho - 1.0)
           + a[..., 2] * (1.0 / do - 1.0) + a[..., 3])
-    c0 = ((s0 + 1.0) * n - 1.0) / 2.0
-    return torch.stack([c0, a[..., 2] * (n / do), a[..., 1] * (n / ho),
-                        a[..., 0] * (n / wo)], dim=-1)
+    # the sizes as Python scalars: a tensor made from a list would be a blocking
+    # copy to the device, which waits for the stream on every call
+    rows = [torch.stack([((s0[:, r] + 1.0) * n - 1.0) / 2.0, a[:, r, 2] * (n / do),
+                         a[:, r, 1] * (n / ho), a[:, r, 0] * (n / wo)], dim=-1)
+            for r, n in enumerate((float(W), float(H), float(D)))]
+    return torch.stack(rows, dim=1)

@@ -30,8 +30,8 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     'afk_plane_resample_fwd': [_P, _P, _P] + [_I] * 5 + [_P],
-    'afk_plane_resample_bwd': [_P] * 5 + [_I] * 5 + [_P],
-    'afk_volume_resample': [_P] * 3 + [_I] * 10 + [_P],
+    'afk_plane_resample_bwd': [_P] * 6 + [_I] * 5 + [_P],
+    'afk_volume_resample': [_P] * 4 + [_I] * 10 + [_P],
     'afk_conv3d_fwd': [_P] * 5 + [_I] * 8 + [_P],
     'afk_conv3d_wgrad_workspace': [_I] * 6 + [_P],
     'afk_conv3d_wgrad': [_P] * 5 + [_I] * 7 + [_P],
@@ -83,6 +83,8 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.afk_plane_resample_bwd_workspace.argtypes = [_I] * 3
+    lib.afk_plane_resample_bwd_workspace.restype = ctypes.c_longlong
     lib.afk_error_string.argtypes = [ctypes.c_int]
     lib.afk_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -5,6 +5,8 @@
 Plain version: ``ops.resample.sample_slice_into_volume`` with its autograd gradient.
 """
 
+import functools
+
 import torch
 
 from acquisition_focus_tpu_torch.ops.kernels import _lib, affine_coefficients
@@ -30,9 +32,15 @@ def plane_resample_fwd(slices, coefs, out_spat):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_workspace_floats(B, C, S):
+    return _lib.library().afk_plane_resample_bwd_workspace(B, C, S)
+
+
 def plane_resample_bwd(slices, coefs, grad):
     """Kernel launch: cotangent (B, C, So, So, So) in ``slices.dtype`` ->
-    (d_slices (B, C, S, S) float32, d_coefs (B, 3, 4) float32)."""
+    (d_slices (B, C, S, S) float32, d_coefs (B, 3, 4) float32). The cotangent is
+    read only in the band |ix - S/2| <= 1; no atomics, so the same bits every run."""
     B, C, S, _ = slices.shape
     So = grad.shape[-1]
     _lib.check_cuda_tensor('slices', slices, _DTYPES)
@@ -42,10 +50,12 @@ def plane_resample_bwd(slices, coefs, grad):
             or not grad.device == coefs.device == slices.device:
         raise ValueError(f"bad shapes or devices: cotangent {tuple(grad.shape)} on "
                          f"{grad.device}, coefs {tuple(coefs.shape)} on {coefs.device}")
-    d_slices = torch.zeros((B, C, S, S), dtype=torch.float32, device=slices.device)
-    d_coefs = torch.zeros((B, 3, 4), dtype=torch.float32, device=slices.device)
+    ws = torch.empty(_bwd_workspace_floats(B, C, S),
+                     dtype=torch.float32, device=slices.device)
+    d_slices = torch.empty((B, C, S, S), dtype=torch.float32, device=slices.device)
+    d_coefs = torch.empty((B, 3, 4), dtype=torch.float32, device=slices.device)
     _lib.launch('plane_resample_bwd', 'afk_plane_resample_bwd',
-                slices.data_ptr(), coefs.data_ptr(), grad.data_ptr(),
+                slices.data_ptr(), coefs.data_ptr(), grad.data_ptr(), ws.data_ptr(),
                 d_slices.data_ptr(), d_coefs.data_ptr(),
                 B, C, S, So, int(slices.dtype == torch.bfloat16))
     return d_slices, d_coefs

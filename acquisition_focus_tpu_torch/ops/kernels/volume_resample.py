@@ -24,9 +24,12 @@ def volume_resample_cuda(volume, theta, out_dhw):
                          f"volume {tuple(volume.shape)} on {volume.device}")
     do, ho, wo = (int(s) for s in out_dhw)
     coefs = affine_coefficients(theta, (do, ho, wo), (D, H, W)).contiguous()
+    # the kernel's channels-last copy of the volumes, channels padded to 8
+    scratch = torch.empty(B * D * H * W * (-(-C // 8) * 8), dtype=volume.dtype,
+                          device=volume.device)
     out = torch.empty((T, C, do, ho, wo), dtype=volume.dtype, device=volume.device)
     _lib.launch('volume_resample', 'afk_volume_resample',
-                volume.data_ptr(), coefs.data_ptr(), out.data_ptr(),
+                volume.data_ptr(), coefs.data_ptr(), scratch.data_ptr(), out.data_ptr(),
                 B, C, D, H, W, T, do, ho, wo, int(volume.dtype == torch.bfloat16))
     return out
 

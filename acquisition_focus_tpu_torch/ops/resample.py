@@ -226,15 +226,47 @@ def sample_slice_into_volume(slices, theta, out_spat):
 
     Returns: (B, C, out_spat, out_spat, out_spat) in ``slices.dtype``.
     """
+    S = slices.shape[-1]
+    sx, sy, sz = _sample_points(theta[:, :3, :], (out_spat,) * 3)
+    return _embed_plane(slices, _to_vox(sx, S).reshape(-1), _to_vox(sy, S).reshape(-1),
+                        _to_vox(sz, S).reshape(-1), out_spat)
+
+
+def _fma32(a, b, c):
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: ``b`` holds
+    small integers, so the product is exact in float64."""
+    return (a.double() * b + c.double()).float()
+
+
+def sample_slice_into_volume_from_coefs(slices, coefs, out_spat):
+    """:func:`sample_slice_into_volume` with the output voxels mapped to plane
+    coordinates through the (B, 3, 4) coefficient form of the affine
+    (``ops.kernels.affine_coefficients``), each coordinate computed as the K1
+    kernels compute it: ((c0 + cd d) + ch h) + cw w, each step one multiply-add
+    rounded once to float32. The coordinates then equal the kernels' bit for bit,
+    so at every kink of the gradient (plane weight, cell boundaries, clamp band)
+    both take the same branch, where normalized coordinates round ~1e-5 voxel
+    apart at 128^3. Differentiable in both arguments; a plain version for checking
+    the kernels, on no training path."""
+    r = torch.arange(out_spat, dtype=torch.float64, device=coefs.device)
+    grid = (r[:, None, None], r[None, :, None], r[None, None, :])
+    coords = []
+    for row in range(3):
+        c = coefs[:, row, :, None, None, None].float()
+        i = c[:, 0]
+        for j, v in enumerate(grid, 1):
+            i = _fma32(c[:, j], v, i)
+        coords.append(i.reshape(-1))
+    return _embed_plane(slices, *coords, out_spat)
+
+
+def _embed_plane(slices, ix, iy, iz, out_spat):
+    """The re-embedding at the flat (B * out_spat^3,) plane coordinates ix (across
+    the plane), iy and iz (along its H and D axes)."""
     B, C, S, S2 = slices.shape
     if S != S2:
         raise ValueError(f"slices must be square, got {tuple(slices.shape)}")
     n_out = out_spat ** 3
-
-    sx, sy, sz = _sample_points(theta[:, :3, :], (out_spat,) * 3)
-    ix = _to_vox(sx, S).reshape(-1)
-    iy = _to_vox(sy, S).reshape(-1)
-    iz = _to_vox(sz, S).reshape(-1)
     plane_w = torch.clamp(1.0 - torch.abs(ix - (S // 2)), min=0.0)
 
     y0, fy = _nudged_cell(iy)

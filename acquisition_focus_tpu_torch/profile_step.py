@@ -8,11 +8,13 @@ configuration's step (``spec_from_config(DEFAULTS, 6, 3)``, batch 2 x accum 2,
 back to back (host clock, ending in a sync), then one step under
 ``torch.profiler``. It prints the device milliseconds of that step by kernel
 group, the device total, the wall time of the profiled step and the device's idle
-share (1 - device total / wall), with the card's name and power limit. Needs a
+share (1 - device total / wall), the port's kernels one by one (device ms and
+launches per step), with the card's name and power limit. Needs a
 CUDA device; there is no CPU fallback.
 """
 
 import argparse
+import re
 import subprocess
 import time
 
@@ -24,7 +26,9 @@ GROUPS = (
     ('K4 conv3d_wgrad (TMA + wgmma, + reduce)', ('wgrad_tma_kernel', 'wgrad_reduce')),
     ('K3 conv3d (TMA + wgmma; forward and as dx)', ('conv3d_tma_kernel',)),
     ('K3/K4 channels-last staging', ('channels_last_kernel',)),
-    ('K1f + K1b + K2', ('plane_fwd', 'plane_bwd', 'volume_resample')),
+    ('K1f plane_fwd', ('plane_fwd',)),
+    ('K1b plane_bwd (cells, + sum)', ('plane_bwd',)),
+    ('K2 volume_resample (staging, + bricks)', ('volume_resample',)),
     ('cuDNN layout copies', ('nchwToNhwc', 'nhwcToNchw')),
     ('cuDNN wgrad', ('wgrad',)),
     ('cuDNN dgrad', ('dgrad',)),
@@ -33,6 +37,8 @@ GROUPS = (
     ('cuBLAS GEMM', ('gemm', 'Gemm')),
 )
 OTHER = 'elementwise and other'
+PORT_GROUPS = {g for g, _ in GROUPS[:6]}
+KERNEL_NAME = re.compile(r'\w*(?:plane_|volume_resample|conv3d|wgrad|channels_last)\w*')
 
 
 def group_of(name):
@@ -83,13 +89,17 @@ def profile(mode):
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ms = {}
+    ms, kernels = {}, {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            g = group_of(e.name)
-            ms[g] = ms.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+            g, t = group_of(e.name), e.time_range.elapsed_us() / 1e3
+            ms[g] = ms.get(g, 0.0) + t
+            if g in PORT_GROUPS:
+                name = KERNEL_NAME.search(e.name).group(0)
+                k_ms, n = kernels.get(name, (0.0, 0))
+                kernels[name] = (k_ms + t, n + 1)
     torch.cuda.empty_cache()
-    return ms, wall * 1e3, back_to_back * 1e3
+    return ms, wall * 1e3, back_to_back * 1e3, kernels
 
 
 def main():
@@ -120,6 +130,12 @@ def main():
                      ('3 steps back to back, mean ms', lambda r: r[2])):
         cells = ['/'.join(f"{f(r):.2f}" for r in results[m]) for m in args.modes]
         print(f"  {label:45s} " + '  |  '.join(cells))
+    print("the port's kernels: device ms (launches) per step")
+    names = sorted({k for m in args.modes for r in results[m] for k in r[3]})
+    for k in names:
+        cells = ['/'.join(f"{r[3].get(k, (0.0, 0))[0]:.4f} ({r[3].get(k, (0.0, 0))[1]})"
+                          for r in results[m]) for m in args.modes]
+        print(f"  {k:45s} " + '  |  '.join(cells))
     print(smi)
 
 

@@ -8,8 +8,11 @@
 2. Kernels at the main path's shapes: each kernel against its plain PyTorch
    version on the same CUDA tensors, in bfloat16 and float32 (TF32 off), with the
    error against a stated tolerance and both times (CUDA events, after warm-up):
-   K1 forward/backward, K2, K3 forward, K3 as the conv's input gradient, and K4
-   (the conv's weight gradient).
+   K1 forward/backward at all six skip-connector levels (and at level 0 on
+   unrounded affines against the plain version in the kernel's coordinate
+   arithmetic), K2 (and, as a reference
+   only, ``F.grid_sample`` on a grid made beforehand), K3 forward, K3 as the
+   conv's input gradient, and K4 (the conv's weight gradient).
 3. The training step: the default configuration's step
    (``spec_from_config(DEFAULTS, 6, 3)``: hybrid U-Net at reference widths, 3 views,
    6 classes, 128^3 @ 192 mm, batch 2 x accum 2, bf16) on phantom labels, random
@@ -30,11 +33,13 @@
    ``theta_pass`` and ``eval_step`` on the CPU, where every wrapper takes its plain
    version.
 6. The last line is {"ok": true, "device": {...}}; the line before it lists the
-   kernels as JSON: launches during the sweep, the largest error against the plain
-   version, the bf16 kernel and plain times summed over the shapes checked, the
-   least time the card could take for the same work (``bound_ms``: each input
-   read and each output written once at 3.35 TB/s, or the operations at the
-   peak rate of their type, whichever is larger; ``bound_by`` says which) and,
+   kernels as JSON: launches during the sweep and per training step of each mode
+   (``launches_per_step``), the largest error against the plain version, the bf16
+   kernel and plain times summed over the shapes checked, the least time the card
+   could take for the same work (``bound_ms``: each input read and each output
+   written once at 3.35 TB/s, or the operations at the peak rate of their type,
+   whichever is larger; ``bound_by`` says which; K1b counts the cotangent only at
+   the band voxels it needs, and ``dense_bound_ms`` counts all of it) and,
    for the three conv uses, the one PyTorch call that computes the same function
    (``library_ms``: ``F.conv3d``, ``conv3d_input``, ``conv3d_weight``; null for
    K1 and K2, which no single call computes). Any failure raises and exits
@@ -54,6 +59,7 @@ import numpy as np
 import torch
 
 WARMUP = 2
+STEPS = 4                   # training steps per mode, the first a warm-up
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 BF16_FLOP_S = 989e12        # dense bf16 tensor-core peak
 F32_FLOP_S = 67e12          # float32 peak outside the tensor cores
@@ -78,8 +84,9 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def rotations(rng, n, offset):
-    """(n, 4, 4) random proper rotations with offsets in [-offset, offset]."""
+def rotations(rng, n, offset, dyadic=False):
+    """(n, 4, 4) random proper rotations with offsets in [-offset, offset];
+    ``dyadic``: entries rounded to multiples of 2^-6."""
     out = np.tile(np.eye(4), (n, 1, 1))
     for i in range(n):
         q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
@@ -87,6 +94,8 @@ def rotations(rng, n, offset):
             q[:, 0] *= -1
         out[i, :3, :3] = q
         out[i, :3, 3] = rng.uniform(-offset, offset, 3)
+    if dyadic:
+        out = np.round(out * 64) / 64
     return torch.tensor(out, dtype=torch.float32, device='cuda')
 
 
@@ -158,6 +167,7 @@ class Checker:
 def check_volume_resample(chk, rng):
     """K2 at the prescan resample: (2, 6, 128^3) label volume, 6 affines (3 views
     x 2 samples), 128^3 out."""
+    import torch.nn.functional as F
     from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
         volume_resample_cuda)
     from acquisition_focus_tpu_torch.ops.resample import grid_sample
@@ -170,11 +180,27 @@ def check_volume_resample(chk, rng):
         ref = grid_sample(vol, theta, out)
         name = str(dtype).split('.')[-1]
         chk.compare('volume_resample', f'{name} out', got, ref, tol)
-        chk.timed('volume_resample', name,
-                  lambda: volume_resample_cuda(vol, theta, out),
-                  lambda: grid_sample(vol, theta, out), 10,
-                  main=dtype == torch.bfloat16)
+        ms = chk.timed('volume_resample', name,
+                       lambda: volume_resample_cuda(vol, theta, out),
+                       lambda: grid_sample(vol, theta, out), 10,
+                       main=dtype == torch.bfloat16)
         if dtype == torch.bfloat16:
+            # the nearest library call, as a reference only: not the same function
+            # (its floor has no 2^-14 nudge; it takes a grid made beforehand and one
+            # volume per affine), so library_ms stays null
+            vol_t = vol[torch.arange(theta.shape[0], device='cuda') % vol.shape[0]]
+            grid = F.affine_grid(theta[:, :3], (theta.shape[0], 6) + out,
+                                 align_corners=False).to(dtype)
+
+            def library():
+                return F.grid_sample(vol_t, grid, mode='bilinear', padding_mode='zeros',
+                                     align_corners=False)
+
+            lib_ms = (cuda_ms(library, 10) + cuda_ms(library, 10)) / 2
+            diff = (library().float() - got.float()).abs().max().item()
+            log(f"  {'volume_resample':20s} {'F.grid_sample (reference)':30s} {lib_ms:.4f} ms "
+                f"(kernel {ms:.4f} ms), max |diff| {diff:.3e}: not the same function")
+            del vol_t, grid
             # per output voxel: its sample point (~30 operations), then 8 weights
             # and 7 adds per channel
             n_vox = got.shape[0] * math.prod(out)
@@ -183,23 +209,50 @@ def check_volume_resample(chk, rng):
         del vol, got, ref
 
 
+SKIP_LEVELS = ((128, 16), (64, 32), (32, 64), (16, 128), (8, 256), (4, 256))
+
+
+def band_voxels(coefs, S):
+    """Voxels of the (B, S^3) output with a non-zero plane weight max(0, 1 - |ix -
+    S/2|) and a tap on the plane (nudged cell in -1..S-1 on both plane axes), from
+    the (B, 3, 4) coefficients: the cotangent values K1b has to read."""
+    r = torch.arange(S, dtype=torch.float32, device=coefs.device)
+
+    def coord(row):
+        c = coefs[:, row, :, None, None, None]
+        return c[:, 0] + c[:, 1] * r[:, None, None] + c[:, 2] * r[None, :, None] + c[:, 3] * r
+
+    cell_y, cell_z = (torch.floor(coord(i) + 2.0 ** -14) for i in (1, 2))
+    keep = ((coord(0) - S // 2).abs() <= 1) & (cell_y >= -1) & (cell_y <= S - 1) \
+        & (cell_z >= -1) & (cell_z <= S - 1)
+    return int(keep.sum())
+
+
 def check_plane_resample(chk, rng):
-    """K1 forward and backward at skip-connector levels 0 (S 128, C 16) and 5
-    (S 4, C 256), batch 2; tolerances on errors divided by the reference's max.
-    The kernel maps output voxels to plane coordinates through the (B, 3, 4)
-    coefficient form, the plain version through normalized coordinates: in float32
-    the two round differently by ~1e-5 voxel at S = 128, hence 2e-4 (forward)."""
+    """K1 forward and backward at the six skip-connector levels of the main path
+    ((S, C) in SKIP_LEVELS), batch 2; tolerances on errors divided by the
+    reference's max. The kernel maps output voxels to plane coordinates through the
+    (B, 3, 4) coefficient form, the plain version through normalized coordinates: in
+    float32 the two round differently by ~1e-5 voxel at S = 128, hence 2e-4
+    (forward). Here the affines' entries are multiples of 2^-6, so both coordinate
+    forms are exact and take the same branch at every kink of the gradient (plane
+    weight's sign and edge, cell boundaries, clamp band);
+    check_plane_resample_unrounded holds level 0 on unrounded affines. K1b's bound
+    counts the cotangent only at the band voxels (plane weight > 0), counted from
+    this run's coefficients, which is all a kernel that skips the rest must read;
+    the dense bound (the whole cotangent) is printed beside it and kept as
+    dense_bound_ms."""
     from acquisition_focus_tpu_torch.ops.kernels import affine_coefficients
     from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
         plane_resample, plane_resample_bwd, plane_resample_fwd)
     from acquisition_focus_tpu_torch.ops.resample import sample_slice_into_volume
-    for S, C in ((128, 16), (4, 256)):
+    for S, C in SKIP_LEVELS:
         log(f"K1 plane_resample: (2, {C}, {S}, {S}) -> (2, {C}, {S}^3)")
-        theta = rotations(rng, 2, 0.2)
+        theta = rotations(rng, 2, 0.2, dyadic=True)
         coefs = affine_coefficients(theta, (S,) * 3, (S,) * 3).contiguous()
         for dtype, tol_f, tol_b in ((torch.bfloat16, 1e-2, 3e-2),
                                     (torch.float32, 2e-4, 1e-3)):
-            name = f"{str(dtype).split('.')[-1]} S{S}"
+            name = f"{str(dtype).split('.')[-1]} S{S} C{C}"
             slices = torch.randn((2, C, S, S), device='cuda').to(dtype)
             g = torch.randn((2, C, S, S, S), device='cuda').to(dtype)
 
@@ -222,11 +275,19 @@ def check_plane_resample(chk, rng):
                 # per output voxel: its plane coordinates (~20 operations), then per
                 # channel a bilinear tap forward (7) and its adjoint backward (~20)
                 el = slices.element_size()
-                n_vox = 2 * S ** 3
+                n_vox, band = 2 * S ** 3, band_voxels(coefs, S)
+                plane_bytes = slices.numel() * el + slices.numel() * 4
                 chk.add_bound('plane_resample_fwd', slices.numel() * el + g.numel() * el,
                               n_vox * (20 + 7 * C), F32_FLOP_S)
-                chk.add_bound('plane_resample_bwd', g.numel() * el + 2 * slices.numel() * el,
-                              n_vox * (20 + 20 * C), F32_FLOP_S)
+                b_ms = chk.add_bound('plane_resample_bwd', band * C * el + plane_bytes,
+                                     band * (20 + 20 * C), F32_FLOP_S)
+                dense_ms, _ = bound(g.numel() * el + 2 * slices.numel() * el,
+                                    n_vox * (20 + 20 * C), F32_FLOP_S)
+                row = chk.rows['plane_resample_bwd']
+                row['dense_bound_ms'] = row.get('dense_bound_ms', 0.0) + dense_ms
+                log(f"  plane_resample_bwd   {name:30s} band voxels {band} of {n_vox} "
+                    f"({100 * band / n_vox:.2f}%): band bound {b_ms:.4f} ms, dense bound "
+                    f"{dense_ms:.4f} ms")
             with torch.no_grad():
                 chk.timed('plane_resample_fwd', name,
                           lambda: plane_resample_fwd(slices, coefs, S),
@@ -241,6 +302,60 @@ def check_plane_resample(chk, rng):
                                                   retain_graph=True),
                       iters, main)
             del slices, g, out_k, out_p, ds_k, ds_p, out_graph
+        torch.cuda.empty_cache()
+
+
+def check_plane_resample_unrounded(chk, rng):
+    """K1 at level 0 (S 128, C 16, batch 2) on unrounded rotations, as the main
+    path's learned affines are. There normalized coordinates and the kernels'
+    coefficient form round ~1e-5 voxel apart, which can put a voxel on the other
+    side of a kink of the gradient, so the kernel is held against the plain version
+    in its own coordinate arithmetic (``sample_slice_into_volume_from_coefs``): on a
+    plane of ones the float32 forward must be bit-equal (the same coordinates), and
+    out, d_slices and d_theta within the tolerances of check_plane_resample. The
+    gaps of the kernel and of that plain version to the normalized one are printed
+    beside, not held."""
+    from acquisition_focus_tpu_torch.ops.kernels import affine_coefficients
+    from acquisition_focus_tpu_torch.ops.kernels.plane_resample import plane_resample
+    from acquisition_focus_tpu_torch.ops.resample import (
+        sample_slice_into_volume, sample_slice_into_volume_from_coefs)
+    S, C = SKIP_LEVELS[0]
+    log(f"K1 plane_resample, unrounded affines: (2, {C}, {S}, {S}) -> (2, {C}, {S}^3)")
+    theta = rotations(rng, 2, 0.2)
+
+    def from_coefs(s, t, S):
+        return sample_slice_into_volume_from_coefs(
+            s, affine_coefficients(t, (S,) * 3, (S,) * 3), S)
+
+    ones = torch.ones((2, 1, S, S), device='cuda')
+    n_diff = (plane_resample(ones, theta, S) != from_coefs(ones, theta, S)).sum().item()
+    log(f"  plane_resample_fwd   {'float32 ones plane':30s} voxels that differ from the "
+        f"coefficient form: {n_diff}  {'FAIL' if n_diff else 'ok'}")
+    if n_diff:
+        raise AssertionError(f"plane_resample_fwd: {n_diff} voxels of a ones plane "
+                             "differ from the coefficient form")
+    for dtype, tol_f, tol_b in ((torch.bfloat16, 1e-2, 3e-2), (torch.float32, 2e-4, 1e-3)):
+        name = f"{str(dtype).split('.')[-1]} S{S} C{C} unrounded"
+        slices = torch.randn((2, C, S, S), device='cuda').to(dtype)
+        g = torch.randn((2, C, S, S, S), device='cuda').to(dtype)
+        res = []
+        for fn in (plane_resample, from_coefs, sample_slice_into_volume):
+            s = slices.clone().requires_grad_()
+            t = theta.clone().requires_grad_()
+            out = fn(s, t, S)
+            res.append((out.detach(),) + torch.autograd.grad(out, (s, t), g))
+        kern, coef, norm = res
+        for i, (what, tol) in enumerate((('out', tol_f), ('d_slices', tol_b),
+                                         ('d_theta', tol_b))):
+            kernel = 'plane_resample_fwd' if i == 0 else 'plane_resample_bwd'
+            chk.compare(kernel, f'{name} {what}', kern[i], coef[i], tol, True)
+            gaps = [((a[i].float() - norm[i].float()).abs().max()
+                     / norm[i].float().abs().max()).item() for a in (kern, coef)]
+            log(f"  {kernel:20s} {name + ' ' + what:30s} against the normalized "
+                f"plain version: kernel {gaps[0]:.3e}, coefficient form {gaps[1]:.3e} "
+                "(of its max; not held)")
+        del slices, g, res, kern, coef, norm
+    torch.cuda.empty_cache()
 
 
 def report_conv(chk, kernel, name, ms, x_shape, co, nbytes):
@@ -395,7 +510,7 @@ def run_steps(mode):
     torch.cuda.reset_peak_memory_stats()
     _lib.reset_launch_counts()
     times, losses = [], []
-    for step in range(4):
+    for step in range(STEPS):
         t0 = time.perf_counter()
         metrics = train.train_step(spec, unet, atms, recon, trans, batch, gen)
         loss = float(metrics['loss'])        # synchronizes
@@ -675,6 +790,7 @@ def main():
     chk = Checker()
     check_volume_resample(chk, rng)
     check_plane_resample(chk, rng)
+    check_plane_resample_unrounded(chk, rng)
     check_conv3d(chk, rng)
     check_conv3d_grads(chk)
     torch.cuda.empty_cache()
@@ -703,11 +819,15 @@ def main():
     }
     kernels = [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
                 'launches': launches[name],
+                'launches_per_step': {m: r['launches'][name] / STEPS
+                                      for m, r in (('fwd', fwd), ('full', full))},
                 'max_abs_err': chk.rows[name]['max_abs_err'],
                 'ms': chk.rows[name]['ms'], 'plain_ms': chk.rows[name]['plain_ms'],
                 'bound_ms': chk.rows[name]['bound_ms'],
                 'bound_by': chk.rows[name]['bound_by'],
-                'library_ms': chk.rows[name].get('library_ms')}
+                'library_ms': chk.rows[name].get('library_ms'),
+                **({'dense_bound_ms': chk.rows[name]['dense_bound_ms']}
+                   if 'dense_bound_ms' in chk.rows[name] else {})}
                for name, (src, rep) in sources.items()]
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -26,7 +26,7 @@ from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
 from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
     affine_volume_resample, volume_resample_cuda)
 from acquisition_focus_tpu_torch.ops.resample import (
-    grid_sample, sample_slice_into_volume)
+    grid_sample, sample_slice_into_volume, sample_slice_into_volume_from_coefs)
 
 
 def T(a, **kw):
@@ -136,6 +136,47 @@ def test_plane_resample_coefficients_reproduce_the_sample(rng):
         coord = c[:, r, 0, None, None, None] + c[:, r, 1, None, None, None] * d \
             + c[:, r, 2, None, None, None] * h + c[:, r, 3, None, None, None] * w
         np.testing.assert_allclose(coord.numpy(), _to_vox(s, S).numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize('out_dhw,in_dhw', [((16,) * 3, (16,) * 3),
+                                            ((15, 17, 19), (17, 19, 21)),
+                                            ((128,) * 3, (96, 112, 80))])
+def test_affine_coefficients_bit_equal_to_the_size_tensor_form(rng, out_dhw, in_dhw):
+    """The sizes enter as Python scalars (no host-to-device copy per call); the
+    coefficients are the same bits as with a float32 size tensor, also where the
+    size ratios are not integers (n / do rounds once in float64, then to float32)."""
+    theta = T(np.concatenate([rotation_affines(rng, 4, 0.3, 1.1),
+                              rotation_affines(rng, 4, 0.1, 0.7)]))
+    do, ho, wo = (float(s) for s in out_dhw)
+    D, H, W = in_dhw
+    a = theta[:, :3, :4]
+    n = a.new_tensor([W, H, D])[None, :]
+    s0 = (a[..., 0] * (1.0 / wo - 1.0) + a[..., 1] * (1.0 / ho - 1.0)
+          + a[..., 2] * (1.0 / do - 1.0) + a[..., 3])
+    c0 = ((s0 + 1.0) * n - 1.0) / 2.0
+    ref = torch.stack([c0, a[..., 2] * (n / do), a[..., 1] * (n / ho),
+                       a[..., 0] * (n / wo)], dim=-1)
+    assert torch.equal(affine_coefficients(theta, out_dhw, in_dhw), ref)
+
+
+@pytest.mark.parametrize('S,C,rounded', [(8, 3, False), (16, 4, False), (16, 4, True),
+                                         (32, 2, False)])
+def test_plane_coefficient_form_matches_plain(rng, S, C, rounded):
+    """The plain version in the kernels' coordinate arithmetic against the plain
+    version in normalized coordinates: forward, d_slices and d_theta, float32;
+    closer on rounded affines, where both coordinate forms are exact and only the
+    order of the sums differs."""
+    theta = rotation_affines(rng, 2)
+    theta = T(np.round(theta * 64) / 64 if rounded else theta)
+    slices = T(rng.normal(size=(2, C, S, S)))
+    g = T(rng.normal(size=(2, C, S, S, S)))
+    res = []
+    for fn in (sample_slice_into_volume, plane_from_coefs):
+        s, th = slices.clone().requires_grad_(), theta.clone().requires_grad_()
+        out = fn(s, th, S)
+        res.append((out.detach(),) + torch.autograd.grad(out, (s, th), g))
+    for k, p in zip(*res):
+        close_scaled(k, p, 1e-6 if rounded else 1e-5)
 
 
 # ---------------------------------------------------------------- K2 volume resample
@@ -335,12 +376,22 @@ def test_kernel_launchers_refuse_cpu_tensors(rng):
 # ---------------------------------------------------------------- CUDA kernels (card)
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('S,C', [(16, 3), (32, 16), (8, 64)])
+@pytest.mark.parametrize('S,C,rounded', [
+    (16, 3, False), (32, 16, False), (8, 64, False), (4, 256, False),
+    (16, 3, True), (32, 16, True), (8, 64, True), (4, 256, True), (128, 16, True)])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_plane_resample_kernel_matches_plain(cuda, S, C, dtype):
+def test_plane_resample_kernel_matches_plain(cuda, S, C, rounded, dtype):
+    """Random rotations, as they are or with entries ``rounded`` to multiples of
+    2^-6, where the kernel's coefficient form and the plain version's normalized
+    coordinates are both exact. At S = 128 on unrounded rotations the two forms'
+    ~1e-5 voxel of rounding puts voxels on the other side of a kink of the
+    gradient, and the float32 d_theta of the two plain forms differ by more than
+    the tolerance (acquisition_focus_tpu_torch/PARITY.md): that case is held
+    against the coefficient form below."""
     rng = np.random.default_rng(0)
     slices = T(rng.normal(size=(2, C, S, S)), device=cuda).to(dtype)
-    theta = T(rotation_affines(rng, 2), device=cuda)
+    theta = rotation_affines(rng, 2)
+    theta = T(np.round(theta * 64) / 64 if rounded else theta, device=cuda)
     g = T(rng.normal(size=(2, C, S, S, S)), device=cuda).to(dtype)
     res = []
     for fn in (plane_resample, sample_slice_into_volume):
@@ -353,14 +404,139 @@ def test_plane_resample_kernel_matches_plain(cuda, S, C, dtype):
         close_scaled(k.float().cpu(), p.float().cpu(), tol[min(i, 1)])
 
 
+def plane_from_coefs(slices, theta, S):
+    """The plain version in the kernel's coordinate arithmetic, on theta."""
+    coefs = affine_coefficients(theta, (S,) * 3, (S,) * 3)
+    return sample_slice_into_volume_from_coefs(slices, coefs, S)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,C', [(16, 3), (32, 16), (8, 64), (4, 256), (128, 16)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_plane_resample_kernel_matches_coefficient_form(cuda, S, C, dtype):
+    """Unrounded random rotations against the plain version computing the
+    kernel's own coordinates: on a plane of ones the float32 forward is bit-equal
+    (the plane weight and bilinear weights, so the coordinates, are the same), and
+    forward, d_slices and d_theta hold at the tolerances of the test above."""
+    rng = np.random.default_rng(0)
+    slices = T(rng.normal(size=(2, C, S, S)), device=cuda).to(dtype)
+    theta = T(rotation_affines(rng, 2), device=cuda)
+    g = T(rng.normal(size=(2, C, S, S, S)), device=cuda).to(dtype)
+    ones = torch.ones((2, 1, S, S), device=cuda)
+    assert torch.equal(plane_resample(ones, theta, S), plane_from_coefs(ones, theta, S))
+    res = []
+    for fn in (plane_resample, plane_from_coefs):
+        s, th = slices.clone().requires_grad_(), theta.clone().requires_grad_()
+        out = fn(s, th, S)
+        res.append((out.detach(),) + torch.autograd.grad(out, (s, th), g))
+    tol = (1e-2, 3e-2) if dtype == torch.bfloat16 else (1e-4, 1e-3)
+    for i, (k, p) in enumerate(zip(*res)):
+        assert k.dtype == p.dtype
+        close_scaled(k.float().cpu(), p.float().cpu(), tol[min(i, 1)])
+
+
+def plane_theta(axis, aligned):
+    """(1, 4, 4) grid affine whose ix row moves fastest along output axis ``axis``
+    ('d', 'h' or 'w'): a permutation of the axes, exactly aligned (the ix row has
+    zeros on the other two axes) or turned by 0.3 rad about each axis."""
+    perm = {'w': (0, 1, 2), 'h': (1, 0, 2), 'd': (2, 1, 0)}[axis]
+    a = np.eye(4)
+    a[:3, :3] = np.eye(3)[list(perm)]
+    if not aligned:
+        for i, j in ((0, 1), (1, 2), (0, 2)):
+            r = np.eye(4)
+            r[[i, i, j, j], [i, j, i, j]] = np.cos(0.3), -np.sin(0.3), np.sin(0.3), np.cos(0.3)
+            a = a @ r
+        a[:3, 3] = (0.05, -0.03, 0.02)
+    return a[None].astype(np.float32)
+
+
+def plane_grads(fn, slices, theta, g, S):
+    s, th = slices.clone().requires_grad_(), theta.clone().requires_grad_()
+    out = fn(s, th, S)
+    return torch.autograd.grad(out, (s, th), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('aligned', [True, False])
+@pytest.mark.parametrize('axis', ['d', 'h', 'w'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_plane_resample_bwd_dominant_axes(cuda, dtype, axis, aligned):
+    """K1b walks lines along the output axis where ix moves fastest: planes with
+    each axis dominant, exactly axis-aligned (zero slope on the other two axes,
+    sample points on voxel knots) or turned, against the plain autograd."""
+    rng = np.random.default_rng(10)
+    S, C = 16, 12
+    theta = T(plane_theta(axis, aligned), device=cuda)
+    slices = T(rng.normal(size=(1, C, S, S)), device=cuda).to(dtype)
+    g = T(rng.normal(size=(1, C, S, S, S)), device=cuda).to(dtype)
+    got = plane_grads(plane_resample, slices, theta, g, S)
+    ref = plane_grads(sample_slice_into_volume, slices, theta, g, S)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-3
+    for k, p in zip(got, ref):
+        close_scaled(k.float().cpu(), p.float().cpu(), tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-def test_volume_resample_kernel_matches_plain(cuda, dtype):
+def test_plane_resample_bwd_plane_missing_the_volume(cuda, dtype):
+    """A plane shifted off the volume along x: zero d_slices and d_coefs."""
+    rng = np.random.default_rng(11)
+    S, C = 16, 8
+    theta = np.eye(4, dtype=np.float32)[None].copy()
+    theta[0, 0, 3] = 3.0
+    slices = T(rng.normal(size=(1, C, S, S)), device=cuda).to(dtype)
+    coefs = affine_coefficients(T(theta, device=cuda), (S,) * 3, (S,) * 3).contiguous()
+    g = T(rng.normal(size=(1, C, S, S, S)), device=cuda).to(dtype)
+    d_slices, d_coefs = plane_resample_bwd(slices, coefs, g)
+    assert not d_slices.any() and not d_coefs.any()
+    ref = plane_grads(sample_slice_into_volume, slices, T(theta, device=cuda), g, S)
+    assert not ref[0].any() and not ref[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_plane_resample_bwd_same_bits_every_run(cuda, dtype):
+    """No atomics in K1b: two runs on the same inputs give the same bits."""
+    rng = np.random.default_rng(12)
+    S, C = 32, 16
+    slices = T(rng.normal(size=(2, C, S, S)), device=cuda).to(dtype)
+    coefs = affine_coefficients(T(rotation_affines(rng, 2), device=cuda), (S,) * 3,
+                                (S,) * 3).contiguous()
+    g = T(rng.normal(size=(2, C, S, S, S)), device=cuda).to(dtype)
+    first = plane_resample_bwd(slices, coefs, g)
+    for _ in range(3):
+        again = plane_resample_bwd(slices, coefs, g)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+K2_ZOOMS = (0.7, 0.85, 1.0, 1.15, 1.3, 1.45)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,C,n_theta,zooms,in_dhw,out_dhw', [
+    (2, 6, 6, (1.0,), DHW, (16, 32, 40)),
+    # channel counts around K2's groups of 8 (1, 6 and 8 in one group, 11 in two),
+    # each volume shared by 3 affines (T = 3 B), zooms 0.7-1.45
+    (2, 1, 6, K2_ZOOMS, DHW, (16, 32, 40)),
+    (2, 6, 6, K2_ZOOMS, DHW, (16, 32, 40)),
+    (2, 8, 6, K2_ZOOMS, DHW, (16, 32, 40)),
+    (2, 11, 6, K2_ZOOMS, DHW, (16, 32, 40)),
+    # odd output width (single stores at each row's end) and odd extents
+    (1, 3, 2, (1.1,), (17, 19, 21), (15, 17, 19))])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_volume_resample_kernel_matches_plain(cuda, dtype, B, C, n_theta, zooms, in_dhw,
+                                              out_dhw):
+    """Affine t is a random rotation times zooms[t % len(zooms)] and samples
+    volume t % B."""
     rng = np.random.default_rng(1)
-    vol = T(rng.random((2, 6) + DHW), device=cuda).to(dtype)
-    theta = T(rotation_affines(rng, 6, 0.1), device=cuda)
-    out = volume_resample_cuda(vol, theta, (16, 32, 40))
-    ref = grid_sample(vol, theta, (16, 32, 40))
+    vol = T(rng.random((B, C) + in_dhw), device=cuda).to(dtype)
+    offset = 0.1 if n_theta > 2 else 0.2
+    theta = T(np.concatenate([rotation_affines(rng, 1, offset, zooms[t % len(zooms)])
+                              for t in range(n_theta)]), device=cuda)
+    out = volume_resample_cuda(vol, theta, out_dhw)
+    ref = grid_sample(vol, theta, out_dhw)
+    assert out.shape == (n_theta, C) + out_dhw and out.dtype == dtype
     atol = 1e-2 if dtype == torch.bfloat16 else 1e-4
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                atol=atol)
