@@ -5,14 +5,18 @@
 (B, num_classes, S, S, S) logits. Grouped 2D encoder (groups = n_views), two conv
 blocks per stage, InstanceNorm(affine) + LeakyReLU, stride-2 downsampling from stage 1
 on; skip connectors re-embed every 2D feature map into 3D along the inverted,
-zoom-stripped slice affine (kernel K1 on CUDA); 3D decoder with 2^3/2 transposed-conv
-upsampling, skip concat, two 3^3 conv blocks per stage (at the full-resolution
-level on CUDA: kernel K3 forward, and per ``use_pallas_conv`` K3 as the input
-gradient and K4 as the weight gradient); 1x1x1 head in float32.
+zoom-stripped slice affine (kernel K1 on CUDA, all views in one launch); 3D decoder
+with 2^3/2 transposed-conv upsampling, skip concat (each stage re-embeds its own
+level's skip, on CUDA straight into the concat buffer), two 3^3 conv blocks per
+stage (at the full-resolution level on CUDA: kernel K3 forward, and per
+``use_pallas_conv`` K3 as the input gradient and K4 as the weight gradient); 1x1x1
+head in float32.
 
 The convs compute in ``dtype`` (bf16 under autocast over float32 params); norms
 compute in float32, as flax's GroupNorm does with float32 params.
 """
+
+import functools
 
 import torch
 import torch.nn as nn
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 from acquisition_focus_tpu_torch.models.localization import compute_autocast, leaky_relu
 from acquisition_focus_tpu_torch.ops.affine import affine_zooms, scale_affine_columns
 from acquisition_focus_tpu_torch.ops.kernels.conv3d import conv3d, supports_conv3d
-from acquisition_focus_tpu_torch.ops.kernels.plane_resample import plane_resample
+from acquisition_focus_tpu_torch.ops.kernels.plane_resample import skip_concat
 
 BASE_FEATURES = (16, 32, 64, 128, 256, 256)
 
@@ -102,25 +106,22 @@ class Conv3x3x3(nn.Module):
 
 class SkipConnector(nn.Module):
     """(B, n_views*f, S, S) features + (n_views, B, 4, 4) slice affines ->
-    (B, n_views*f, S, S, S): each view's features re-embedded along its slice."""
+    (B, n_views*f, S, S, S): each view's features re-embedded along its slice;
+    given ``y`` (B, co, S, S, S), ``torch.cat([y, that], 1)`` (one buffer on CUDA)."""
 
     def __init__(self, n_views):
         super().__init__()
         self.n_views = n_views
 
-    def forward(self, x, grid_affines):
-        S = x.shape[-1]
-        f = x.shape[1] // self.n_views
+    def forward(self, x, grid_affines, y=None):
         with torch.autocast(x.device.type, enabled=False):
             g = grid_affines.float()
             inv_aff = torch.linalg.inv(scale_affine_columns(g, 1.0 / affine_zooms(g)))
-        x = x.to(_compute_dtype(x))
-        return torch.cat([plane_resample(x[:, v * f:(v + 1) * f], inv_aff[v], S)
-                          for v in range(self.n_views)], dim=1)
+        return skip_concat(y, x.to(_compute_dtype(x)), inv_aff)
 
 
 class DecoderStage(nn.Module):
-    """Upsample, concat the skip, two 3^3 conv blocks."""
+    """Upsample, concat the skip re-embedded into 3D, two 3^3 conv blocks."""
 
     def __init__(self, ci, co, use_kernel=False):
         super().__init__()
@@ -130,9 +131,9 @@ class DecoderStage(nn.Module):
         self.b_conv = Conv3x3x3(co, co, use_kernel)
         self.b_norm = nn.InstanceNorm3d(co, eps=1e-5, affine=True)
 
-    def forward(self, y, skip):
-        y = self.up(y)
-        y = torch.cat([y, skip.to(y.dtype)], dim=1)
+    def forward(self, y, embed_skip):
+        """``embed_skip(y_up)``: ``torch.cat([y_up, this level's skip in 3D], 1)``."""
+        y = embed_skip(self.up(y))
         y = _norm_act(self.a_norm, self.a_conv(y))
         return _norm_act(self.b_norm, self.b_conv(y))
 
@@ -159,8 +160,10 @@ class HybridUnet(nn.Module):
             for stage in self.encoder:
                 x = stage(x)
                 skips.append(x)
-            skips3d = [self.skip_connector(s, grid_affines) for s in skips]
-            y = skips3d[-1]
+            # each level's skip is re-embedded where the decoder takes it, so the
+            # six 3D skip volumes never live side by side
+            y = self.skip_connector(skips[-1], grid_affines)
             for s in range(len(self.decoder) - 1, -1, -1):
-                y = self.decoder[s](y, skips3d[s])
+                y = self.decoder[s](y, functools.partial(self.skip_connector, skips[s],
+                                                         grid_affines))
         return self.seg_head(y.float())

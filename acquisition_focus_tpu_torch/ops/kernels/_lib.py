@@ -27,10 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    'afk_plane_resample_fwd': [_P, _P, _P] + [_I] * 5 + [_P],
-    'afk_plane_resample_bwd': [_P] * 6 + [_I] * 5 + [_P],
+    'afk_plane_resample_fwd': [_P, _P, _P, _L] + [_I] * 7 + [_P],
+    'afk_plane_resample_bwd': [_P, _P, _P, _L, _I, _P, _P, _P] + [_I] * 6 + [_P],
     'afk_volume_resample': [_P] * 4 + [_I] * 10 + [_P],
     'afk_conv3d_fwd': [_P] * 5 + [_I] * 8 + [_P],
     'afk_conv3d_wgrad_workspace': [_I] * 6 + [_P],
@@ -83,7 +83,7 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.afk_plane_resample_bwd_workspace.argtypes = [_I] * 3
+    lib.afk_plane_resample_bwd_workspace.argtypes = [_I] * 4
     lib.afk_plane_resample_bwd_workspace.restype = ctypes.c_longlong
     lib.afk_error_string.argtypes = [ctypes.c_int]
     lib.afk_error_string.restype = ctypes.c_char_p
@@ -95,12 +95,16 @@ def launch(kernel, fn_name, *args):
     """Call C entry ``fn_name`` of the library on the current CUDA stream, raise
     on a launch error, and count one launch of ``kernel``."""
     import torch
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, fn_name)(*args, stream)
+    fn = getattr(library(), fn_name)
+    # ctypes passes arguments beyond argtypes unconverted, so a wrong count
+    # would not raise by itself
+    if len(args) + 1 != len(fn.argtypes):
+        raise TypeError(f"{fn_name} takes {len(fn.argtypes) - 1} arguments and the "
+                        f"stream, got {len(args)}")
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
-                           f"({lib.afk_error_string(rc).decode()})")
+                           f"({library().afk_error_string(rc).decode()})")
     LAUNCHES[kernel] += 1
 
 

@@ -1,22 +1,28 @@
 """Where the default training step's device time goes, by kernel group, on the card.
 
     python -m acquisition_focus_tpu_torch.profile_step [--modes fwd full] [--rounds 2]
+    PYTHONPATH=DIR python -P acquisition_focus_tpu_torch/profile_step.py
 
 For each round and each ``use_pallas_conv3d`` mode in turn: the default
 configuration's step (``spec_from_config(DEFAULTS, 6, 3)``, batch 2 x accum 2,
 128^3, bf16) from seed-0 weights on phantom labels, 2 warm-up and 3 timed steps
 back to back (host clock, ending in a sync), then one step under
 ``torch.profiler``. It prints the device milliseconds of that step by kernel
-group, the device total, the wall time of the profiled step and the device's idle
-share (1 - device total / wall), the port's kernels one by one (device ms and
-launches per step), with the card's name and power limit. Needs a
-CUDA device; there is no CPU fallback.
+group (the copy kernels of ``torch.cat``, ``copy_``, ``.contiguous()`` and dtype
+casts in a group of their own), the device total, the wall time of the profiled
+step and the device's idle share (1 - device total / wall), the port's kernels one
+by one (device ms and launches per step), K1f's device ms per launch by skip level,
+step 0's loss and the peak device memory over the unprofiled steps, with the card's
+name and power limit. The second form runs this script on the package of checkout
+DIR (an earlier commit unpacked with ``git archive``), so two commits are measured
+with the same groups. Needs a CUDA device; there is no CPU fallback.
 """
 
 import argparse
 import re
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -29,6 +35,7 @@ GROUPS = (
     ('K1f plane_fwd', ('plane_fwd',)),
     ('K1b plane_bwd (cells, + sum)', ('plane_bwd',)),
     ('K2 volume_resample (staging, + bricks)', ('volume_resample',)),
+    ('copies (cat, copy_, contiguous, casts)', ('CatArrayBatchedCopy', 'direct_copy_kernel')),
     ('cuDNN layout copies', ('nchwToNhwc', 'nhwcToNchw')),
     ('cuDNN wgrad', ('wgrad',)),
     ('cuDNN dgrad', ('dgrad',)),
@@ -75,21 +82,37 @@ def default_step(mode):
 
 def profile(mode):
     from torch.profiler import ProfilerActivity, profile as tprofile
+    from acquisition_focus_tpu_torch.ops.kernels import plane_resample as k1
     step = default_step(mode)
-    for _ in range(2):
-        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = step()
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(3):
         step()
     torch.cuda.synchronize()
     back_to_back = (time.perf_counter() - t0) / 3
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ms, kernels = {}, {}
+    peak = torch.cuda.max_memory_allocated()
+    # the skip level (out_spat) of each K1f launch, in launch order: the stream runs
+    # the kernels in that order, so the i-th K1f kernel of the trace is the i-th call
+    levels, fwd = [], k1.plane_resample_fwd
+
+    def record(slices, coefs, out_spat, *args, **kw):
+        levels.append(out_spat)
+        return fwd(slices, coefs, out_spat, *args, **kw)
+
+    k1.plane_resample_fwd = record
+    try:
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        k1.plane_resample_fwd = fwd
+    ms, kernels, k1f = {}, {}, []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             g, t = group_of(e.name), e.time_range.elapsed_us() / 1e3
@@ -98,8 +121,17 @@ def profile(mode):
                 name = KERNEL_NAME.search(e.name).group(0)
                 k_ms, n = kernels.get(name, (0.0, 0))
                 kernels[name] = (k_ms + t, n + 1)
+            if 'plane_fwd' in e.name:
+                k1f.append((e.time_range.start, t))
+    by_level = {}
+    if len(k1f) == len(levels):
+        for S, (_, t) in zip(levels, sorted(k1f)):
+            by_level.setdefault(S, []).append(t)
+    else:
+        print(f"[{mode}] {len(k1f)} K1f kernels in the trace for {len(levels)} calls: "
+              "no per-level times", flush=True)
     torch.cuda.empty_cache()
-    return ms, wall * 1e3, back_to_back * 1e3, kernels
+    return ms, wall * 1e3, back_to_back * 1e3, kernels, by_level, loss0, peak
 
 
 def main():
@@ -111,7 +143,9 @@ def main():
         raise SystemExit("profile_step: no CUDA device")
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                          capture_output=True, text=True, check=True).stdout.strip()
+    import acquisition_focus_tpu_torch
     print(smi, f"torch {torch.__version__}", flush=True)
+    print(f"package: {Path(acquisition_focus_tpu_torch.__file__).parent}", flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     results = {m: [] for m in args.modes}
@@ -136,6 +170,14 @@ def main():
         cells = ['/'.join(f"{r[3].get(k, (0.0, 0))[0]:.4f} ({r[3].get(k, (0.0, 0))[1]})"
                           for r in results[m]) for m in args.modes]
         print(f"  {k:45s} " + '  |  '.join(cells))
+    print("K1f: device ms per launch (launches per step) by skip level")
+    for S in sorted({S for m in args.modes for r in results[m] for S in r[4]}, reverse=True):
+        cells = ['/'.join(f"{sum(r[4].get(S, [0.0])) / max(len(r[4].get(S, [])), 1):.4f} "
+                          f"({len(r[4].get(S, []))})" for r in results[m]) for m in args.modes]
+        print(f"  {f'S {S}':45s} " + '  |  '.join(cells))
+    for label, i in (('step 0 loss', 5), ('peak memory over the steps, B', 6)):
+        cells = ['/'.join(repr(r[i]) for r in results[m]) for m in args.modes]
+        print(f"  {label:45s} " + '  |  '.join(cells))
     print(smi)
 
 

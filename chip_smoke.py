@@ -8,16 +8,19 @@
 2. Kernels at the main path's shapes: each kernel against its plain PyTorch
    version on the same CUDA tensors, in bfloat16 and float32 (TF32 off), with the
    error against a stated tolerance and both times (CUDA events, after warm-up):
-   K1 forward/backward at all six skip-connector levels (and at level 0 on
+   K1 forward/backward at all six skip-connector levels, for one view and as the
+   main path launches them (three views into the decoder's concat buffer, its
+   cotangent read in place; also into a NaN-filled buffer), and at level 0 on
    unrounded affines against the plain version in the kernel's coordinate
-   arithmetic), K2 (and, as a reference
+   arithmetic, K2 (and, as a reference
    only, ``F.grid_sample`` on a grid made beforehand), K3 forward, K3 as the
    conv's input gradient, and K4 (the conv's weight gradient).
 3. The training step: the default configuration's step
    (``spec_from_config(DEFAULTS, 6, 3)``: hybrid U-Net at reference widths, 3 views,
    6 classes, 128^3 @ 192 mm, batch 2 x accum 2, bf16) on phantom labels, random
    weights from a seed: 1 warm-up and 3 timed steps with ``use_pallas_conv3d='fwd'``
-   (K1, K2, K3 forward), then the same 4 steps from the same weights, batch and
+   (K1, K2, K3 forward; K1f and K1b must launch once per skip level and
+   microbatch), then the same 4 steps from the same weights, batch and
    generator seed with ``'full'`` (K3 also as the input gradient, K4 as the weight
    gradient). Step 0's loss must agree between the two.
 4. The sweep: ``stage_sweep_run`` -> ``run_dl`` at full width (the same
@@ -35,7 +38,8 @@
 6. The last line is {"ok": true, "device": {...}}; the line before it lists the
    kernels as JSON: launches during the sweep and per training step of each mode
    (``launches_per_step``), the largest error against the plain version, the bf16
-   kernel and plain times summed over the shapes checked, the least time the card
+   kernel and plain times summed over the main path's shapes (K1: three views per
+   launch; ``one_view_*``: the one-view launches), the least time the card
    could take for the same work (``bound_ms``: each input read and each output
    written once at 3.35 TB/s, or the operations at the peak rate of their type,
    whichever is larger; ``bound_by`` says which; K1b counts the cotangent only at
@@ -119,10 +123,11 @@ class Checker:
     def __init__(self):
         self.rows = {}
 
-    def add_bound(self, kernel, nbytes, flops, peak):
-        """Add one checked shape's bound to the kernel's (summed like its times)."""
+    def add_bound(self, kernel, nbytes, flops, peak, row=None):
+        """Add one checked shape's bound to the kernel's (summed like its times;
+        ``row``: under another row than the kernel's)."""
         ms, by = bound(nbytes, flops, peak)
-        row = self.rows.setdefault(kernel, {'max_abs_err': 0.0})
+        row = self.rows.setdefault(row or kernel, {'max_abs_err': 0.0})
         row['bound_ms'] = row.get('bound_ms', 0.0) + ms
         row['bound_by'] = by
         return ms
@@ -146,17 +151,19 @@ class Checker:
         row['max_abs_err'] = max(row['max_abs_err'], err)
         return err
 
-    def timed(self, kernel, what, kernel_fn, plain_fn, iters, main=False, library=False):
+    def timed(self, kernel, what, kernel_fn, plain_fn, iters, main=False, library=False,
+              row=None):
         """Time the kernel and its plain version in turns (plain, kernel, kernel,
-        plain; the mean of each pair). ``library``: the plain version is one
-        PyTorch call computing the same function, also reported as library_ms."""
+        plain; the mean of each pair). ``main``: add the times to the kernel's row
+        (or to ``row``). ``library``: the plain version is one PyTorch call
+        computing the same function, also reported as library_ms."""
         p0, k0 = cuda_ms(plain_fn, iters), cuda_ms(kernel_fn, iters)
         k1, p1 = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, iters)
         ms, plain_ms = (k0 + k1) / 2, (p0 + p1) / 2
         log(f"  {kernel:20s} {what:30s} kernel {ms:.4f} ms ({k0:.4f}, {k1:.4f})  plain "
             f"{plain_ms:.4f} ms ({p0:.4f}, {p1:.4f})")
         if main:
-            row = self.rows.setdefault(kernel, {'max_abs_err': 0.0})
+            row = self.rows.setdefault(row or kernel, {'max_abs_err': 0.0})
             row['ms'] = row.get('ms', 0.0) + ms
             row['plain_ms'] = row.get('plain_ms', 0.0) + plain_ms
             if library:
@@ -210,6 +217,8 @@ def check_volume_resample(chk, rng):
 
 
 SKIP_LEVELS = ((128, 16), (64, 32), (32, 64), (16, 128), (8, 256), (4, 256))
+# the rows of K1's one-view launches, kept beside the main path's three-view rows
+ONE_VIEW = {k: f'{k} one view' for k in ('plane_resample_fwd', 'plane_resample_bwd')}
 
 
 def band_voxels(coefs, S):
@@ -230,7 +239,10 @@ def band_voxels(coefs, S):
 
 def check_plane_resample(chk, rng):
     """K1 forward and backward at the six skip-connector levels of the main path
-    ((S, C) in SKIP_LEVELS), batch 2; tolerances on errors divided by the
+    ((S, C) in SKIP_LEVELS), batch 2, for one view (``plane_resample``; its times
+    and bounds go to the rows '<kernel> one view', comparable with earlier runs)
+    and, in check_skip_concat, for the main path's launches: three views into the
+    decoder's concat buffer (the kernels' rows); tolerances on errors divided by the
     reference's max. The kernel maps output voxels to plane coordinates through the
     (B, 3, 4) coefficient form, the plain version through normalized coordinates: in
     float32 the two round differently by ~1e-5 voxel at S = 128, hence 2e-4
@@ -278,13 +290,12 @@ def check_plane_resample(chk, rng):
                 n_vox, band = 2 * S ** 3, band_voxels(coefs, S)
                 plane_bytes = slices.numel() * el + slices.numel() * 4
                 chk.add_bound('plane_resample_fwd', slices.numel() * el + g.numel() * el,
-                              n_vox * (20 + 7 * C), F32_FLOP_S)
+                              n_vox * (20 + 7 * C), F32_FLOP_S, ONE_VIEW['plane_resample_fwd'])
                 b_ms = chk.add_bound('plane_resample_bwd', band * C * el + plane_bytes,
-                                     band * (20 + 20 * C), F32_FLOP_S)
+                                     band * (20 + 20 * C), F32_FLOP_S,
+                                     ONE_VIEW['plane_resample_bwd'])
                 dense_ms, _ = bound(g.numel() * el + 2 * slices.numel() * el,
                                     n_vox * (20 + 20 * C), F32_FLOP_S)
-                row = chk.rows['plane_resample_bwd']
-                row['dense_bound_ms'] = row.get('dense_bound_ms', 0.0) + dense_ms
                 log(f"  plane_resample_bwd   {name:30s} band voxels {band} of {n_vox} "
                     f"({100 * band / n_vox:.2f}%): band bound {b_ms:.4f} ms, dense bound "
                     f"{dense_ms:.4f} ms")
@@ -292,7 +303,7 @@ def check_plane_resample(chk, rng):
                 chk.timed('plane_resample_fwd', name,
                           lambda: plane_resample_fwd(slices, coefs, S),
                           lambda: sample_slice_into_volume(slices, theta, S),
-                          iters, main)
+                          iters, main, row=ONE_VIEW['plane_resample_fwd'])
             s = slices.clone().requires_grad_()
             t = theta.clone().requires_grad_()
             out_graph = sample_slice_into_volume(s, t, S)
@@ -300,9 +311,85 @@ def check_plane_resample(chk, rng):
                       lambda: plane_resample_bwd(slices, coefs, g),
                       lambda: torch.autograd.grad(out_graph, (s, t), g,
                                                   retain_graph=True),
-                      iters, main)
-            del slices, g, out_k, out_p, ds_k, ds_p, out_graph
-        torch.cuda.empty_cache()
+                      iters, main, row=ONE_VIEW['plane_resample_bwd'])
+            del slices, g, out_k, out_p, ds_k, ds_p, out_graph, s, t
+            check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main)
+            torch.cuda.empty_cache()
+
+
+def check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main):
+    """The main path's K1 launches at one level: ``skip_concat(y, slices, theta)``,
+    the decoder's concat of y (2, 3C, S^3) and the three views' re-embedded planes
+    (2, 3C, S, S), one K1f launch into the buffer and one K1b launch reading its
+    cotangent in place, against the plain composition (``sample_slice_into_volume``
+    per view, ``torch.cat``): the buffer and the gradients to y, the slices and
+    theta (affines rounded as in check_plane_resample). Then K1f into a NaN-filled
+    buffer at channel 3C: no NaN may remain in the views' channels, and channels
+    [:3C] must stay NaN. The two launches are timed against their plain versions
+    into the same buffer; the bound counts the three views' output and planes
+    (K1f) and their band voxels (K1b)."""
+    from acquisition_focus_tpu_torch.ops.kernels import affine_coefficients
+    from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
+        plane_resample_bwd, plane_resample_fwd, skip_concat)
+    from acquisition_focus_tpu_torch.ops.resample import sample_slice_into_volume
+    V, co = 3, 3 * C
+    name = f"{str(dtype).split('.')[-1]} S{S} C{C} 3 views"
+    theta = rotations(rng, V * 2, 0.2, dyadic=True).reshape(V, 2, 4, 4)
+    coefs = affine_coefficients(theta.reshape(-1, 4, 4), (S,) * 3, (S,) * 3)
+    coefs = coefs.reshape(V, 2, 3, 4).contiguous()
+    slices = torch.randn((2, V * C, S, S), device='cuda').to(dtype)
+    y = torch.randn((2, co) + (S,) * 3, device='cuda').to(dtype)
+    g = torch.randn((2, co + V * C) + (S,) * 3, device='cuda').to(dtype)
+
+    def views(s, t):
+        return [sample_slice_into_volume(s[:, v * C:(v + 1) * C], t[v], S) for v in range(V)]
+
+    def grads(fn):
+        args = [a.clone().requires_grad_() for a in (y, slices, theta)]
+        out = fn(*args)
+        return (out.detach(),) + torch.autograd.grad(out, args, g)
+
+    got = grads(skip_concat)
+    ref = grads(lambda a, s, t: torch.cat([a] + views(s, t), dim=1))
+    for i, (what, tol) in enumerate((('out', tol_f), ('d_y', tol_f), ('d_slices', tol_b),
+                                     ('d_theta', tol_b))):
+        chk.compare('plane_resample_fwd' if i == 0 else 'plane_resample_bwd',
+                    f'{name} {what}', got[i], ref[i], tol, True)
+    buf = torch.full(g.shape, float('nan'), dtype=dtype, device='cuda')
+    plane_resample_fwd(slices, coefs, S, buf, co)
+    n_nan, kept = buf[:, co:].isnan().sum().item(), buf[:, :co].isnan().all().item()
+    log(f"  plane_resample_fwd   {name + ' into NaNs':30s} NaN left in the views' channels: "
+        f"{n_nan}; channels [:{co}] untouched: {kept}  {'ok' if kept and not n_nan else 'FAIL'}")
+    if n_nan or not kept:
+        raise AssertionError(f"plane_resample_fwd {name}: {n_nan} voxels left unwritten, "
+                             f"other channels untouched: {kept}")
+    chk.compare('plane_resample_fwd', f'{name} into NaNs', buf[:, co:], ref[0][:, co:],
+                tol_f, True)
+    del got, ref
+
+    def plain_fwd():
+        for v, vol in enumerate(views(slices, theta)):
+            buf[:, co + v * C:co + (v + 1) * C] = vol
+
+    with torch.no_grad():
+        chk.timed('plane_resample_fwd', name, lambda: plane_resample_fwd(slices, coefs, S, buf, co),
+                  plain_fwd, iters, main)
+    s, t = slices.clone().requires_grad_(), theta.clone().requires_grad_()
+    out_graph = torch.cat([y] + views(s, t), dim=1)
+    chk.timed('plane_resample_bwd', name, lambda: plane_resample_bwd(slices, coefs, g, co),
+              lambda: torch.autograd.grad(out_graph, (s, t), g, retain_graph=True),
+              iters, main)
+    if main:
+        el, n_vox = slices.element_size(), V * 2 * S ** 3
+        band = sum(band_voxels(coefs[v], S) for v in range(V))
+        chk.add_bound('plane_resample_fwd', slices.numel() * el + n_vox * C * el,
+                      n_vox * (20 + 7 * C), F32_FLOP_S)
+        chk.add_bound('plane_resample_bwd', band * C * el + slices.numel() * (el + 4),
+                      band * (20 + 20 * C), F32_FLOP_S)
+        dense_ms, _ = bound(n_vox * C * el + 2 * slices.numel() * el,
+                            n_vox * (20 + 20 * C), F32_FLOP_S)
+        row = chk.rows['plane_resample_bwd']
+        row['dense_bound_ms'] = row.get('dense_bound_ms', 0.0) + dense_ms
 
 
 def check_plane_resample_unrounded(chk, rng):
@@ -535,6 +622,13 @@ def run_steps(mode):
     missing = [k for k in STEP_KERNELS[mode] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    # K1: one forward and one backward launch per skip level and microbatch, all
+    # views in each
+    k1 = STEPS * len(spec.base_features) * spec.num_grad_accum_steps
+    if launches['plane_resample_fwd'] != k1 or launches['plane_resample_bwd'] != k1:
+        raise AssertionError(f"K1 launched {launches['plane_resample_fwd']} / "
+                             f"{launches['plane_resample_bwd']} times in {STEPS} steps, "
+                             f"expected {k1} each")
     for p in list(unet.parameters()) + list(atms.parameters()):
         if not torch.isfinite(p).all():
             raise AssertionError("non-finite parameter after the steps")
@@ -827,7 +921,9 @@ def main():
                 'bound_by': chk.rows[name]['bound_by'],
                 'library_ms': chk.rows[name].get('library_ms'),
                 **({'dense_bound_ms': chk.rows[name]['dense_bound_ms']}
-                   if 'dense_bound_ms' in chk.rows[name] else {})}
+                   if 'dense_bound_ms' in chk.rows[name] else {}),
+                **({f'one_view_{k}': chk.rows[ONE_VIEW[name]][k]
+                    for k in ('ms', 'plain_ms', 'bound_ms')} if name in ONE_VIEW else {})}
                for name, (src, rep) in sources.items()]
     log(smi)
     log(json.dumps({'kernels': kernels}))

@@ -22,7 +22,7 @@ from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
     conv3d, conv3d_fwd_cuda, conv3d_wgrad, conv3d_wgrad_cuda, kernel_weights,
     supports_conv3d)
 from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
-    plane_resample, plane_resample_bwd, plane_resample_fwd)
+    plane_resample, plane_resample_bwd, plane_resample_fwd, skip_concat)
 from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
     affine_volume_resample, volume_resample_cuda)
 from acquisition_focus_tpu_torch.ops.resample import (
@@ -177,6 +177,45 @@ def test_plane_coefficient_form_matches_plain(rng, S, C, rounded):
         res.append((out.detach(),) + torch.autograd.grad(out, (s, th), g))
     for k, p in zip(*res):
         close_scaled(k, p, 1e-6 if rounded else 1e-5)
+
+
+def old_skip_concat(y, slices, theta):
+    """The skip path before the concat buffer: ``sample_slice_into_volume`` per view,
+    ``torch.cat`` of the views (the skip connector), ``torch.cat([y, skip])`` (the
+    decoder stage)."""
+    V, S = theta.shape[0], slices.shape[-1]
+    F = slices.shape[1] // V
+    skip = torch.cat([sample_slice_into_volume(slices[:, v * F:(v + 1) * F], theta[v], S)
+                      for v in range(V)], dim=1)
+    return skip if y is None else torch.cat([y, skip.to(y.dtype)], dim=1)
+
+
+@pytest.mark.parametrize('S,F', [(8, 3), (16, 2)])
+@pytest.mark.parametrize('V', [1, 3])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_skip_concat_plain_is_the_old_composition(rng, S, F, V, dtype):
+    """On CPU tensors ``skip_concat`` is the former composition: the buffer and the
+    gradients to y, the slices and theta bit-equal; with y None the skip alone."""
+    slices = T(rng.normal(size=(2, V * F, S, S))).to(dtype)
+    theta = T(rotation_affines(rng, V * 2).reshape(V, 2, 4, 4))
+    y = T(rng.normal(size=(2, 5, S, S, S))).to(dtype)
+    g = T(rng.normal(size=(2, 5 + V * F, S, S, S))).to(dtype)
+    res = []
+    for fn in (skip_concat, old_skip_concat):
+        args = [a.clone().requires_grad_() for a in (y, slices, theta)]
+        out = fn(*args)
+        res.append((out.detach(),) + torch.autograd.grad(out, args, g))
+    for a, b in zip(*res):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert torch.equal(skip_concat(None, slices, theta), old_skip_concat(None, slices, theta))
+
+
+def test_skip_concat_refuses_mixed_dtypes(rng):
+    """y and the slices must share a dtype: no quiet cast."""
+    slices = T(rng.normal(size=(1, 3, 8, 8))).to(torch.bfloat16)
+    theta = T(rotation_affines(rng, 3).reshape(3, 1, 4, 4))
+    with pytest.raises(ValueError, match='dtype|float'):
+        skip_concat(torch.zeros(1, 2, 8, 8, 8), slices, theta)
 
 
 # ---------------------------------------------------------------- K2 volume resample
@@ -356,6 +395,23 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(rng):
     assert set(_lib.LAUNCHES.values()) == {0}
 
 
+def test_ctypes_signatures_match_the_sources():
+    """Each C entry's ctypes argtypes (``_lib._SIGNATURES``) follow its declaration
+    in ``csrc/*.cu``: a pointer as c_void_p, ``long long`` as c_longlong, ``int``
+    as c_int."""
+    import ctypes
+    import re
+    decls = {}
+    for path in _lib.CSRC.glob('*.cu'):
+        for name, params in re.findall(r'extern "C" [\w ]+?(afk_\w+)\(([^)]*)\)',
+                                       path.read_text()):
+            decls[name] = [ctypes.c_void_p if '*' in p else
+                           ctypes.c_longlong if 'long long' in p else ctypes.c_int
+                           for p in params.split(',')]
+    for name, argtypes in _lib._SIGNATURES.items():
+        assert decls[name] == argtypes, name
+
+
 def test_kernel_launchers_refuse_cpu_tensors(rng):
     """The launch functions never fall back: a CPU tensor raises before any build."""
     slices, theta = T(rng.normal(size=(1, 2, 8, 8))), T(rotation_affines(rng, 1))
@@ -508,6 +564,115 @@ def test_plane_resample_bwd_same_bits_every_run(cuda, dtype):
     for _ in range(3):
         again = plane_resample_bwd(slices, coefs, g)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def kernel_plane_weight(coefs, S):
+    """(T, S, S, S) plane weight max(0, 1 - |ix - S/2|) of the (T, 3, 4)
+    coefficients, ix in the kernels' arithmetic (one float32 rounding per
+    multiply-add, as ``sample_slice_into_volume_from_coefs``)."""
+    r = torch.arange(S, dtype=torch.float64, device=coefs.device)
+    c = coefs[:, 0, :, None, None, None].double()
+    ix = c[:, 0].float()
+    for j, v in enumerate((r[:, None, None], r[None, :, None], r[None, None, :]), 1):
+        ix = (c[:, j] * v + ix.double()).float()
+    return torch.clamp(1.0 - (ix - S // 2).abs(), min=0.0)
+
+
+def view_inputs(device, S, F, V, dtype, seed, rounded=False):
+    """(2, V*F, S, S) planes, (V, 2, 4, 4) rotations and their (V, 2, 3, 4)
+    coefficients."""
+    rng = np.random.default_rng(seed)
+    slices = T(rng.normal(size=(2, V * F, S, S)), device=device).to(dtype)
+    theta = rotation_affines(rng, V * 2)
+    theta = T(np.round(theta * 64) / 64 if rounded else theta, device=device)
+    coefs = affine_coefficients(theta, (S,) * 3, (S,) * 3).reshape(V, 2, 3, 4).contiguous()
+    return slices, theta.reshape(V, 2, 4, 4), coefs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,F', [(4, 8), (8, 8), (16, 6), (32, 4), (64, 2), (128, 2), (5, 3)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_plane_resample_fwd_into_nan_buffer(cuda, dtype, S, F):
+    """Three views into channels 7.. of a NaN-filled (2, 7 + 3F + 2, S^3) buffer
+    (S 5: 125 voxels a channel, the unaligned path): no NaN is left in them, the
+    other channels keep their NaNs, every voxel of zero plane weight is exactly 0,
+    and the views hold the plain version in the kernel's coordinates within 1e-5
+    (float32) or 1e-2 (bfloat16) of its max; on planes of ones float32 is
+    bit-equal to it."""
+    V, c_off = 3, 7
+    slices, theta, coefs = view_inputs(cuda, S, F, V, dtype, seed=20)
+    buf = torch.full((2, c_off + V * F + 2) + (S,) * 3, float('nan'), dtype=dtype,
+                     device=cuda)
+    plane_resample_fwd(slices, coefs, S, buf, c_off)
+    got = buf[:, c_off:c_off + V * F]
+    assert not got.isnan().any()
+    assert buf[:, :c_off].isnan().all() and buf[:, c_off + V * F:].isnan().all()
+    pw = kernel_plane_weight(coefs.reshape(-1, 3, 4), S).reshape(V, 2, 1, S, S, S)
+    for v in range(V):
+        view = got[:, v * F:(v + 1) * F]
+        assert (view[(pw[v] == 0).expand_as(view)] == 0).all()
+        ref = sample_slice_into_volume_from_coefs(slices[:, v * F:(v + 1) * F], coefs[v], S)
+        close_scaled(view.float().cpu(), ref.float().cpu(),
+                     1e-5 if dtype == torch.float32 else 1e-2)
+    if dtype == torch.float32:
+        ones = torch.ones((2, V, S, S), device=cuda)
+        got = plane_resample_fwd(ones, coefs, S)
+        for v in range(V):
+            assert torch.equal(got[:, v:v + 1],
+                               sample_slice_into_volume_from_coefs(ones[:, v:v + 1], coefs[v], S))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,F', [(16, 8), (8, 64), (32, 3)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_plane_resample_three_views_bit_equal_to_one_view(cuda, dtype, S, F):
+    """One three-view launch of K1f (into a buffer at channel 5) and of K1b
+    (reading that buffer's cotangent in place) gives the bits of three one-view
+    launches; K1b in place gives the bits of K1b on a contiguous copy of the
+    views' channels, and the same bits on a second run."""
+    V, c_off = 3, 5
+    slices, _, coefs = view_inputs(cuda, S, F, V, dtype, seed=21)
+    buf = torch.empty((2, c_off + V * F) + (S,) * 3, dtype=dtype, device=cuda)
+    plane_resample_fwd(slices, coefs, S, buf, c_off)
+    g = torch.randn(buf.shape, device=cuda).to(dtype)
+    d_slices, d_coefs = plane_resample_bwd(slices, coefs, g, c_off)
+    for v in range(V):
+        sv = slices[:, v * F:(v + 1) * F].contiguous()
+        assert torch.equal(buf[:, c_off + v * F:c_off + (v + 1) * F],
+                           plane_resample_fwd(sv, coefs[v], S))
+        ds, dc = plane_resample_bwd(
+            sv, coefs[v], g[:, c_off + v * F:c_off + (v + 1) * F].contiguous())
+        assert torch.equal(d_slices[:, v * F:(v + 1) * F], ds) and torch.equal(d_coefs[v], dc)
+    copy = plane_resample_bwd(slices, coefs, g[:, c_off:].contiguous())
+    again = plane_resample_bwd(slices, coefs, g, c_off)
+    for a, b, c in zip((d_slices, d_coefs), copy, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,F,with_y', [(16, 3, True), (8, 16, True), (32, 4, False)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_skip_concat_kernel_matches_plain(cuda, dtype, S, F, with_y):
+    """``skip_concat`` on the card (one buffer, one K1f and one K1b launch) against
+    the former composition on the same CUDA tensors, on rotations rounded to
+    multiples of 2^-6 (both coordinate forms exact): the buffer and the gradients
+    to y (bit-equal), the slices and theta, at the tolerances of
+    test_plane_resample_kernel_matches_plain."""
+    V = 3
+    slices, theta, _ = view_inputs(cuda, S, F, V, dtype, seed=22, rounded=True)
+    y = torch.randn((2, 5) + (S,) * 3, device=cuda).to(dtype) if with_y else None
+    g = torch.randn((2, (5 if with_y else 0) + V * F) + (S,) * 3, device=cuda).to(dtype)
+    res = []
+    for fn in (skip_concat, old_skip_concat):
+        args = [a.clone().requires_grad_() for a in (y, slices, theta) if a is not None]
+        out = fn(*([None] if y is None else []), *args)
+        res.append((out.detach(),) + torch.autograd.grad(out, args, g))
+    tol = (1e-2, 3e-2) if dtype == torch.bfloat16 else (1e-4, 1e-3)
+    if with_y:
+        assert torch.equal(res[0][0][:, :5], y) and torch.equal(res[0][1], g[:, :5])
+    for i, (k, p) in enumerate(zip(*res)):
+        assert k.dtype == p.dtype
+        close_scaled(k.float().cpu(), p.float().cpu(), tol[min(i, 1)])
 
 
 K2_ZOOMS = (0.7, 0.85, 1.0, 1.15, 1.3, 1.45)
@@ -684,6 +849,12 @@ def test_launch_counts(cuda):
     assert _lib.LAUNCHES == {'plane_resample_fwd': 1, 'plane_resample_bwd': 1,
                              'volume_resample': 1, 'conv3d_fwd': 1, 'conv3d_dx': 0,
                              'conv3d_wgrad': 0}
+    # the skip connector's three views: one launch each way
+    s3 = T(rng.normal(size=(1, 6, 8, 8)), device=cuda).requires_grad_()
+    y = torch.zeros(1, 2, 8, 8, 8, device=cuda, requires_grad=True)
+    skip_concat(y, s3, T(rotation_affines(rng, 3).reshape(3, 1, 4, 4), device=cuda)
+                ).sum().backward()
+    assert (_lib.LAUNCHES['plane_resample_fwd'], _lib.LAUNCHES['plane_resample_bwd']) == (2, 2)
     x = torch.zeros(1, 2, 8, 4, 128, device=cuda, requires_grad=True)
     w = torch.zeros(3, 2, 3, 3, 3, device=cuda, requires_grad=True)
     conv3d(x, w, torch.zeros(3, device=cuda), True, True).sum().backward()
