@@ -1,8 +1,9 @@
-"""Data for the port. ``synthetic`` is the port's copy of the JAX package's phantom
-generator (tests hold the two bit-equal), so both packages draw the same labels
-from a seed. ``base_dataset`` holds the batch half of the dataset layer, which
-``cache.py::load_or_build`` (a copy of the JAX package's, same key and format)
-fills from the dataset cache; the dataset build is not ported yet."""
+"""Data for the port: the NIfTI reader/writer (``nifti_io``), the phantom generator
+and dataset writer (``synthetic``), offline preprocessing (``preprocess``), the
+dataset build and batch layer (``base_dataset``, ``mmwhs``, ``mrxcat``) and the
+dataset cache (``cache.load_or_build``). ``nifti_io``, ``synthetic`` and ``cache``
+are the port's own copies of the JAX package's plain-Python modules (tests hold
+them equal)."""
 
 from acquisition_focus_tpu_torch.data.synthetic import make_heart_phantom
 

@@ -1,30 +1,76 @@
-"""Dataset layer, batch half (torch port of the jax-free part of
-``acquisition_focus_tpu/data/base_dataset.py``): case ids, batch collation and the
-train/eval iterators over numpy cases.
+"""Dataset layer (torch port of ``acquisition_focus_tpu/data/base_dataset.py``):
+NIfTI loading, the per-case geometric precompute, and batch iteration.
 
-A case is a dict of numpy arrays: 'label' (D, H, W) int, 'image' (D, H, W) float,
-'nii_affine' (4, 4) and 'input_view_affines' (V, 4, 4), as the JAX package's build
-precomputes them. Building cases from NIfTI files (``_load``: hires resample,
-clinical views, centroid registration, prescan) is not ported: the port takes
-cases from :meth:`BaseDataset.from_cases`, or from the dataset cache the JAX
-package writes, through ``data/cache.py::load_or_build`` (the port's copy) with
-this class as ``dataset_cls`` (a cache miss reaches ``_load`` and raises).
+Everything constant per case is computed once at build (``_load``): the hires
+resample, clinical view affines, centroid reorientation, the prescan, the
+centroid-reoriented training volume and the per-view input grid affines. The
+volumes are read on the host; every resample and moment reduction then runs on the
+dataset's device (the card unless the caller passes ``device='cpu'``), through the
+plain ``nifti_grid_sample`` (nearest for labels, trilinear with the min-shift for
+images), as the JAX package's build does. Cases leave the build as numpy arrays:
+'label' (D, H, W) int, 'image' (D, H, W) float, 'nii_affine' (4, 4) and
+'input_view_affines' (V, 4, 4), the layout :meth:`BaseDataset.make_batch` collates.
+
+Split layout, id parsing and fold construction follow the reference's
+``metadata/data_split.json`` format. Not ported: the from-segmented build (a
+frozen segmenter's prescan segmentation), which raises ``NotImplementedError``.
 """
 
 import json
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from acquisition_focus_tpu_torch.data.nifti_io import load_nifti
+from acquisition_focus_tpu_torch.geometry.centroids import register_centroids
+from acquisition_focus_tpu_torch.geometry.clinical_views import (
+    get_clinical_cardiac_view_affines)
+from acquisition_focus_tpu_torch.ops.resample import nifti_grid_sample
+from acquisition_focus_tpu_torch.ops.rotations import random_affine_from_jax_key
+from acquisition_focus_tpu_torch.utils import jax_prng
+
+_CLASS_DICT = {tag: idx for idx, tag in enumerate(
+    ("background", "MYO", "LV", "RV", "LA", "RA"))}
+
+
+def _prescan_quality(seg, gt, nii_affine, num_classes):
+    """Dice / HD95 of the (hires-interpolated) segmented prescan against the hires
+    GT: the build-time quality gate of from-segmented runs. HD95 in mm via the
+    voxel-diagonal norm of the comparison grid's affine."""
+    from acquisition_focus_tpu_torch.engine.metrics import hausdorff_per_class
+    seg, gt = np.asarray(seg), np.asarray(gt)
+    dice = np.full(num_classes, np.nan)
+    for c in range(1, num_classes):
+        p, t = seg == c, gt == c
+        denom = p.sum() + t.sum()
+        if denom > 0:
+            dice[c] = 2.0 * np.logical_and(p, t).sum() / denom
+    zooms = np.sqrt((np.asarray(nii_affine, np.float32)[:3, :3] ** 2).sum(0))
+    hd95 = hausdorff_per_class(seg[None], gt[None], num_classes,
+                               percentile=95)[0] * float(np.linalg.norm(zooms))
+    return {
+        'dice': dice, 'hd95': hd95,
+        'dice_mean': float(np.nanmean(dice[1:])),
+        'hd95_mean': (float(np.nanmean(hd95[1:]))
+                      if np.any(~np.isnan(hd95[1:])) else float('nan')),
+    }
 
 
 class BaseDataset:
     label_tags = ("background", "MYO", "LV", "RV", "LA", "RA")
 
-    def __init__(self, data_base_dir, config, state='train', debug=False):
+    def __init__(self, data_base_dir, config, state='train', segment_fn=None,
+                 debug=False, *, device=None):
+        """``device``: where the build's resamples and reductions run (``None``:
+        the card; resolved by ``engine.train.resolve_device`` when the build
+        starts, so a dataset filled from the cache needs no card)."""
         self.data_base_dir = Path(data_base_dir)
         self.config = config
         self.state = state
         self.debug = debug
+        self.segment_fn = segment_fn
+        self.device = device
         if config.get('use_binarized_labels'):
             self.label_tags = ("background", "foreground")
 
@@ -43,16 +89,26 @@ class BaseDataset:
         ds.config = config
         ds.state = state
         ds.debug = False
+        ds.segment_fn = None
+        ds.device = None
         if config.get('use_binarized_labels'):
             ds.label_tags = ("background", "foreground")
         ds.data_split = None
         ds.cases = dict(cases)
         return ds
 
-    def _load(self):
-        raise NotImplementedError(
-            "building a dataset from NIfTI files is not ported yet: use "
-            "BaseDataset.from_cases or the JAX package's dataset cache")
+    # -- subclass hooks ----------------------------------------------------
+    @staticmethod
+    def get_file_id(file_path):
+        raise NotImplementedError
+
+    def extract_3d_id(self, file_id):
+        return file_id
+
+    def set_segment_fn(self, fold_idx):
+        """Frozen-segmenter hook for from-segmented modes (subclasses refuse a
+        configured segmenter: it is not ported)."""
+        self.segment_fn = None
 
     # -- id bookkeeping ----------------------------------------------------
     def get_3d_ids(self):
@@ -70,6 +126,129 @@ class BaseDataset:
 
     def __len__(self):
         return len(self.cases)
+
+    # -- load + precompute -------------------------------------------------
+    def _files_for_state(self):
+        if self.state == 'train':
+            files = self.data_split['train_files']
+        elif self.state == 'test':
+            files = self.data_split['test_files']
+        else:
+            raise ValueError(self.state)
+        if self.debug:
+            files = files[:8]
+        return files
+
+    def _reference_heart_label(self, shape):
+        """Canonical heart for centroid registration: the NIfTI at
+        ``config.centroid_ref_path``, else the deterministic canonical phantom."""
+        ref_path = self.config.get('centroid_ref_path')
+        if ref_path:
+            lbl, _ = load_nifti(ref_path)
+            return lbl.astype(np.int32)
+        from acquisition_focus_tpu_torch.data.synthetic import make_heart_phantom
+        lbl, _, _ = make_heart_phantom(shape=tuple(shape), seed=42, tilt=0.0)
+        return lbl
+
+    def _load(self):
+        from acquisition_focus_tpu_torch.engine.train import resolve_device
+        cfg = self.config
+        if cfg.get('clinical_view_affine_type') == 'from-segmented':
+            raise NotImplementedError(
+                "not ported yet: clinical_view_affine_type='from-segmented' (the "
+                "segmenter's prescan segmentation in the dataset build)")
+        dev = resolve_device(self.device)
+        hires_mm = torch.tensor(cfg['hires_fov_mm'], dtype=torch.float32, device=dev)
+        hires_vox = tuple(cfg['hires_fov_vox'])
+        prescan_mm = torch.tensor(cfg['prescan_fov_mm'], dtype=torch.float32, device=dev)
+        prescan_vox = tuple(cfg['prescan_fov_vox'])
+        num_sa = cfg.get('num_sa_slices', 15)
+
+        def aff32(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)[None]
+
+        def resample(vol, nii, mm, vox, is_label, pre=None):
+            out, _, out_nii = nifti_grid_sample(
+                vol[None, None], aff32(nii), mm, vox, is_label=is_label,
+                pre_grid_sample_affine=None if pre is None else aff32(pre))
+            return out[0, 0], out_nii[0].cpu().numpy().astype(np.float64)
+
+        img_paths, lbl_paths = {}, {}
+        for f in self._files_for_state():
+            fid, is_label = self.get_file_id(f)
+            (lbl_paths if is_label else img_paths)[fid] = self.data_base_dir / f
+        pair_ids = sorted(set(img_paths) & set(lbl_paths))
+
+        ref_heart = None
+        for fid in pair_ids:
+            case = {}
+            img, img_aff = load_nifti(img_paths[fid], dtype=np.float32)
+            lbl, lbl_aff = load_nifti(lbl_paths[fid])
+            img = torch.as_tensor(np.ascontiguousarray(img), device=dev)
+            lbl = torch.as_tensor(np.ascontiguousarray(lbl.astype(np.int32)), device=dev)
+
+            # both to the hires FOV
+            hires_lbl, hires_nii = resample(lbl, lbl_aff, hires_mm, hires_vox, True)
+            hires_img, _ = resample(img, img_aff, hires_mm, hires_vox, False)
+            hires_img = (hires_img - hires_img.mean()) / torch.clamp(
+                hires_img.std(correction=0), min=1e-8)
+            case_label = (hires_lbl > 0).int() if cfg.get('use_binarized_labels') \
+                else hires_lbl
+
+            # clinical view affines from GT
+            view_affines = get_clinical_cardiac_view_affines(
+                hires_lbl, hires_nii, _CLASS_DICT, num_sa_slices=num_sa,
+                return_unrolled=True)
+
+            # canonical orientation via centroid registration
+            if ref_heart is None:
+                ref_heart = torch.as_tensor(self._reference_heart_label(hires_vox),
+                                            device=dev)
+            view_affines['centroids'] = np.asarray(
+                register_centroids(ref_heart, hires_lbl, dof=6, seed=cfg.get('seed', 0)),
+                np.float64)
+
+            # prescan
+            prescan_lbl, case['prescan_nii_affine'] = resample(
+                hires_lbl, hires_nii, prescan_mm, prescan_vox, True)
+            case['prescan_gt'] = prescan_lbl.cpu().numpy().astype(np.int32)
+            case['prescan_label'] = case['prescan_gt']
+            prescan_views = get_clinical_cardiac_view_affines(
+                prescan_lbl, case['prescan_nii_affine'], _CLASS_DICT,
+                num_sa_slices=num_sa, return_unrolled=True)
+            prescan_views['centroids'] = view_affines['centroids']
+            case['prescan_view_affines'] = prescan_views
+            case['gt_view_affines'] = view_affines
+            case['nifti_affine'] = hires_nii
+
+            # the centroid-reoriented training volume and the per-view input grid
+            # affines, from the GT view affines (the only source ported)
+            base = view_affines['centroids']
+            r_lbl, r_nii = resample(case_label, hires_nii, hires_mm, hires_vox, True, base)
+            r_img, _ = resample(hires_img, hires_nii, hires_mm, hires_vox, False, base)
+            case['label'] = r_lbl.cpu().numpy().astype(np.int32)
+            case['image'] = r_img.cpu().numpy().astype(np.float32)
+            case['nii_affine'] = r_nii.astype(np.float32)
+            case['input_view_affines'] = self._input_view_affines(view_affines)
+
+            self.cases[self.extract_3d_id(fid)] = case
+
+    def _input_view_affines(self, chosen_views):
+        """(V, 4, 4) input grid affines for the configured base views:
+        inv(centroid base) @ view affine; 'RND' views get a fixed strong random
+        rotation, drawn from JAX's key (seed + 1000 + view index)."""
+        cfg = self.config
+        base_inv = np.linalg.inv(chosen_views['centroids'])
+        affs = []
+        for v_idx, name in enumerate(cfg['base_views']):
+            if name == 'RND':
+                aff = random_affine_from_jax_key(
+                    jax_prng.key(cfg.get('seed', 0) + 1000 + v_idx),
+                    rotation_strength=4.0, zoom_strength=0.0).numpy().astype(np.float64)
+            else:
+                aff = base_inv @ np.asarray(chosen_views[name], np.float64)
+            affs.append(aff)
+        return np.stack(affs).astype(np.float32)
 
     # -- batch construction ------------------------------------------------
     def get_case(self, case_id):

@@ -1,7 +1,7 @@
 """The port's own copy of the JAX package's ``data/cache.py``: the key and the file
-format are the same, so a cache the JAX package wrote loads here into the port's
-``BaseDataset`` (tests hold both). A miss reaches ``BaseDataset._load``, which is
-not ported yet and raises.
+format are the same, so a cache either package wrote loads in the other (tests hold
+both; the centroid fits of the two differ, ``PARITY.md``). A miss builds the dataset
+on ``device`` (the card unless the caller passes ``device='cpu'``).
 
 Content-hash dataset caching: build once per (config, data) fingerprint.
 
@@ -23,11 +23,11 @@ _CACHE_KEYS = (
 )
 
 
-def _build(dataset_cls, data_base_dir, config, state, debug):
+def _build(dataset_cls, data_base_dir, config, state, debug, *, device=None):
     """Construct + load a dataset, wiring the frozen segmenter BEFORE the load so
     from-segmented precompute actually segments (reference base_dataset.py:44
     calls set_segment_fn(fold_idx=0) at __init__ before load_data)."""
-    ds = dataset_cls(data_base_dir, config, state='empty', debug=debug)
+    ds = dataset_cls(data_base_dir, config, state='empty', debug=debug, device=device)
     if config.get('clinical_view_affine_type') == 'from-segmented':
         ds.set_segment_fn(fold_idx=0)
     ds.state = state
@@ -48,21 +48,22 @@ def _fingerprint(data_base_dir, config, state):
 
 
 def load_or_build(dataset_cls, data_base_dir, config, state, cache_dir='.cache',
-                  debug=False):
+                  debug=False, *, device=None):
     if not config.get('use_caching', True) or state == 'empty':
-        return _build(dataset_cls, data_base_dir, config, state, debug)
+        return _build(dataset_cls, data_base_dir, config, state, debug, device=device)
 
     cache_path = Path(cache_dir) / (
         f"{dataset_cls.__name__}_{_fingerprint(data_base_dir, config, state)}.pkl")
     if cache_path.is_file():
         with open(cache_path, 'rb') as f:
             cases = pickle.load(f)
-        ds = dataset_cls(data_base_dir, config, state='empty', debug=debug)
+        ds = dataset_cls(data_base_dir, config, state='empty', debug=debug,
+                         device=device)
         ds.state = state
         ds.cases = cases
         return ds
 
-    ds = _build(dataset_cls, data_base_dir, config, state, debug)
+    ds = _build(dataset_cls, data_base_dir, config, state, debug, device=device)
     cache_path.parent.mkdir(parents=True, exist_ok=True)
     with open(cache_path, 'wb') as f:
         pickle.dump(ds.cases, f)

@@ -1,5 +1,5 @@
 """Synthetic cardiac phantom generation (the port's own copy of the JAX package's
-``data/synthetic.py``, without its NIfTI dataset writer; tests hold the two equal).
+``data/synthetic.py``; tests hold the phantoms and the written datasets equal).
 
 The deployment environment carries no MMWHS/MRXCAT data, so tests and benchmarks run
 on a geometric heart phantom with the same label vocabulary as MMWHS
@@ -85,3 +85,44 @@ def make_heart_phantom(shape=(96, 96, 96), seed=0, spacing=(1.5, 1.5, 1.5),
     affine[:3, 3] = -np.asarray(spacing) * center
     return label, image.astype(np.float32), affine
 
+
+def write_phantom_dataset(base_dir, n_cases=6, shape=(96, 96, 96), seed=0,
+                          file_pattern="mr_train_{idx:04d}_{kind}.nii.gz",
+                          n_test=2):
+    """Materialize a phantom dataset on disk in the reference's MMWHS prepared-files
+    layout: image/label NIfTI pairs + metadata/data_split.json
+    (reference base_dataset.py:46, main_acquisition_focus.py:152-158)."""
+    import json
+    from pathlib import Path
+    from acquisition_focus_tpu_torch.data.nifti_io import save_nifti
+
+    base_dir = Path(base_dir)
+    (base_dir / "metadata").mkdir(parents=True, exist_ok=True)
+
+    train_files, test_files = [], []
+    for idx in range(n_cases):
+        label, image, affine = make_heart_phantom(shape=shape, seed=seed + idx)
+        img_name = file_pattern.format(idx=idx + 1, kind="image")
+        lbl_name = file_pattern.format(idx=idx + 1, kind="label")
+        # NIfTI files are (i, j, k) indexed; our arrays are (D, H, W) = (i, j, k)
+        save_nifti(base_dir / img_name, image, affine)
+        save_nifti(base_dir / lbl_name, label.astype(np.int16), affine)
+        bucket = test_files if idx >= n_cases - n_test else train_files
+        bucket += [img_name, lbl_name]
+
+    n_train_cases = (len(train_files)) // 2
+    folds = {}
+    for k in range(3):
+        val = [i for i in range(n_train_cases) if i % 3 == k]
+        train = [i for i in range(n_train_cases) if i % 3 != k]
+        # indices address train_files entries; use the label-file index per case
+        folds[f"fold_{k}"] = {
+            "train_idxs": [2 * i for i in train],
+            "val_idxs": [2 * i for i in val],
+        }
+
+    split = {"train_files": train_files, "test_files": test_files,
+             "train_folds": folds, "nnunet_train_files": []}
+    with open(base_dir / "metadata/data_split.json", "w") as f:
+        json.dump(split, f, indent=2)
+    return split

@@ -12,7 +12,8 @@ training step's augmentation from a generator keyed by (seed, global_idx * 10000
 + step), each evaluation batch's from (seed + 7, global_idx * 10000 + i), and the
 shuffle from an epoch-keyed numpy generator, so a resumed run replays the
 uninterrupted one exactly. Not ported: the device mesh (``mesh_shape``) and the
-from-segmented segmenter; both raise ``NotImplementedError``.
+from-segmented path (its dataset build and segmenter); both raise
+``NotImplementedError``.
 """
 
 import dataclasses
@@ -83,11 +84,13 @@ def spec_from_config(config, num_classes, n_active_views, phase='train'):
 
 
 def check_ported_config(config):
-    """Raise for run options whose code is not ported: a device mesh and the
-    from-segmented segmenter."""
+    """Raise for run options whose code is not ported: a device mesh, the
+    from-segmented dataset build and the from-segmented segmenter."""
     missing = []
     if config.get('mesh_shape') is not None:
         missing.append(f"mesh_shape={config['mesh_shape']!r}")
+    if config.get('clinical_view_affine_type') == 'from-segmented':
+        missing.append("clinical_view_affine_type='from-segmented'")
     if config.get('segment_model_path') and \
             config.get('label_slice_type') == 'from-segmented':
         missing.append("label_slice_type='from-segmented' with a segmenter")

@@ -253,7 +253,14 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None):
     target, y_hat = onehot, logits
     if spec.use_binarized_labels:
         target, y_hat = binarize_onehot(target), binarize_onehot(y_hat)
-    if spec.optimize_lv_only:
+    if spec.optimize_lv_only and spec.lv_class >= y_hat.shape[1]:
+        # binarized labels have no LV channel: the JAX package's gather clamps the
+        # index to the last channel (the foreground) and the gather's gradient
+        # drops the out-of-range index, so that channel enters the loss without
+        # a gradient (PARITY.md)
+        loss = dice_ce_loss(torch.cat([y_hat[:, :1], y_hat[:, -1:].detach()], dim=1),
+                            target[:, [0, -1]])
+    elif spec.optimize_lv_only:
         sel = [0, spec.lv_class]
         loss = dice_ce_loss(y_hat[:, sel], target[:, sel])
     else:

@@ -1,20 +1,63 @@
-"""The per-fold stage sweep (torch port of ``stage_sweep_run`` in the JAX package's
-``main.py``), over the port's own copy of the stage machinery
-(``engine/stages.py``: ``get_std_stages``, ``merge_stage_config``).
+"""The port's CLI (torch port of the JAX package's ``main.py``): config merge, fold
+construction, dataset build/caching, and the per-fold stage sweep over the port's
+own copy of the stage machinery (``engine/stages.py``).
 
-The CLI (``main()``, ``build_fold_iter``) needs the dataset build, which is not
-ported yet.
+    python -m acquisition_focus_tpu_torch.main --meta_config_path <meta.json> \
+        [--config_path <base.json>] [--base_dir <dir>] [--device cpu]
+
+Same config keys and run flow as the JAX package's CLI: the meta JSON overrides
+the base config; ``sweep_type`` 'stage-sweep' runs opt_view{i} -> ref per fold.
+Everything runs on the card unless the caller asks for the CPU.
 """
 
+import argparse
 import json
+from datetime import datetime
 from pathlib import Path
 
+import torch
+
+from acquisition_focus_tpu_torch.data.cache import load_or_build
+from acquisition_focus_tpu_torch.data.mrxcat import get_dataset_class
 from acquisition_focus_tpu_torch.engine.checkpoint import checkpoint_exists
-from acquisition_focus_tpu_torch.engine.config import DotDict
+from acquisition_focus_tpu_torch.engine.config import DotDict, load_config
 from acquisition_focus_tpu_torch.engine.runner import run_dl
 from acquisition_focus_tpu_torch.engine.stages import get_std_stages, merge_stage_config
+from acquisition_focus_tpu_torch.engine.train import resolve_device
+from acquisition_focus_tpu_torch.utils.logging import get_fold_postfix
 
-__all__ = ['get_std_stages', 'stage_sweep_run']
+__all__ = ['build_fold_iter', 'get_std_stages', 'main', 'stage_sweep_run']
+
+
+def build_fold_iter(config, training_dataset):
+    """[(fold index, (train case indices, val case indices))] from
+    data_split.json; ``fold_override`` keeps one fold."""
+    if config['num_folds'] < 1:
+        return [(-1, (list(range(len(training_dataset))), []))]
+
+    fold_iter = []
+    split = training_dataset.data_split
+    for fold_idx in range(config['num_folds']):
+        fold = split['train_folds'][f'fold_{fold_idx}']
+        train_files = [split['train_files'][i] for i in fold['train_idxs']]
+        val_files = [split['train_files'][i] for i in fold['val_idxs']]
+        train_ids = {training_dataset.extract_3d_id(
+            training_dataset.get_file_id(f)[0]) for f in train_files}
+        val_ids = {training_dataset.extract_3d_id(
+            training_dataset.get_file_id(f)[0]) for f in val_files}
+        overlap = train_ids & val_ids
+        if overlap:
+            raise ValueError(f"Train and val sets overlap: {overlap}")
+        train_idxs = [i for i in training_dataset.switch_3d_identifiers(
+            sorted(train_ids)) if i is not None]
+        val_idxs = [i for i in training_dataset.switch_3d_identifiers(
+            sorted(val_ids)) if i is not None]
+        fold_iter.append((fold_idx, (train_idxs, val_idxs)))
+
+    if config.get('fold_override') is not None:
+        k = config['fold_override']
+        fold_iter = fold_iter[k:k + 1]
+    return fold_iter
 
 
 def _load_sweep_state(path):
@@ -95,3 +138,61 @@ def stage_sweep_run(base_dir, run_name, config, fold_properties, stages,
                     'transform_model_checkpoint_path')}
             state['in_progress'] = None
             _save_sweep_state(state_path, state)
+
+
+def main(argv=None, *, device=None):
+    """Build the datasets (or load them from the cache) and run every fold.
+    ``device``: where the build and the runs live (``None``: the card, or the
+    ``--device`` argument); ``debug_nans`` turns on autograd's anomaly detection."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--meta_config_path', type=str, default=None)
+    parser.add_argument('--config_path', type=str, default=None,
+                        help='base config json (defaults to built-in DEFAULTS)')
+    parser.add_argument('--base_dir', type=str, default='.')
+    parser.add_argument('--device', type=str, default=None,
+                        help="torch device (default: the card)")
+    args = parser.parse_args(argv)
+    device = resolve_device(device if device is not None else args.device)
+
+    config = load_config(args.config_path, args.meta_config_path)
+    if config.get('debug_nans'):
+        torch.autograd.set_detect_anomaly(True)
+    run_test_once_only = bool(config.get('test_only_and_output_to'))
+
+    dataset_name, dataset_dir = config['dataset']
+    dataset_cls = get_dataset_class(dataset_name)
+
+    training_dataset = load_or_build(
+        dataset_cls, dataset_dir, config,
+        state='empty' if run_test_once_only else 'train',
+        debug=config.get('debug', False), device=device)
+    test_dataset = load_or_build(
+        dataset_cls, dataset_dir, config, state='test',
+        debug=config.get('debug', False), device=device)
+
+    fold_iter = build_fold_iter(config, training_dataset) \
+        if not run_test_once_only else [(0, ([], []))]
+
+    now = datetime.now().strftime('%Y%m%d__%H_%M_%S')
+    run_name = f"{now}_{device.type}"
+
+    for fold_properties in fold_iter:
+        fold_run_name = f"{run_name}_{get_fold_postfix(fold_properties)}"
+        if config.get('sweep_type') is None:
+            run_dl(args.base_dir, config, fold_properties,
+                   training_dataset=training_dataset, test_dataset=test_dataset,
+                   run_test_once_only=run_test_once_only, run_name=fold_run_name,
+                   device=device)
+        elif config['sweep_type'] == 'stage-sweep':
+            stage_sweep_run(args.base_dir, fold_run_name, config, fold_properties,
+                            get_std_stages(config), training_dataset, test_dataset,
+                            run_test_once_only, device=device)
+        else:
+            raise ValueError(config['sweep_type'])
+
+        if config.get('debug') or run_test_once_only:
+            break
+
+
+if __name__ == '__main__':
+    main()

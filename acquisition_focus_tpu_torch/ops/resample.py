@@ -17,14 +17,22 @@ views.
 import torch
 import torch.nn.functional as F
 
-from acquisition_focus_tpu_torch.ops.affine import affine_zooms, grid_affines_for_fov
+from acquisition_focus_tpu_torch.ops.affine import (
+    affine_zooms, grid_affines_for_fov, vox_to_grid_offset)
 
 _EPS = 2.0 ** -14
 
 
 def _normalized_coords(n, dtype, device):
-    """Centers of n cells in [-1, 1] under align_corners=False."""
-    return (2.0 * torch.arange(n, dtype=dtype, device=device) + 1.0) / n - 1.0
+    """Centers of n cells in [-1, 1] under align_corners=False, rounded as XLA
+    compiles the JAX package's (2i + 1)/n - 1 on the CPU: one fused multiply-add
+    (2i + 1) * fl(1/n) - 1 (the product is exact in float64). For n a power of two
+    every form is exact; for other n the forms differ by an ulp, and an ulp decides
+    a nearest sample that lands on a half-voxel tie (a 2 mm -> 1 mm resample
+    puts every other voxel on one)."""
+    inv_n = float(torch.tensor(1.0 / n, dtype=dtype))
+    i2 = 2.0 * torch.arange(n, dtype=torch.float64, device=device) + 1.0
+    return (i2 * inv_n - 1.0).to(dtype)
 
 
 def _sample_points(theta, out_dhw):
@@ -208,6 +216,60 @@ def nifti_grid_sample_nodiff(volume, nii_affine, target_fov_mm=None,
     out = affine_volume_resample(volume - min_value, grid_affine,
                                  target_fov_vox) + min_value
     return out.to(in_dtype), grid_affine, out_nii
+
+
+def crop_around_label_center(label, nii_affine, target_fov_mm, target_fov_vox,
+                             image=None, center_mode='mean'):
+    """Crop/resample around the foreground center of a label volume.
+
+    Args:
+      label: (B, C, D, H, W) integer-valued label volume.
+      nii_affine: (B, 4, 4).
+      target_fov_mm: (3,). target_fov_vox: (3,) ints (-1 keeps that axis).
+      image: optional (B, C, D, H, W) intensity volume resampled with the same crop.
+      center_mode: 'mean' (mass center, truncated to int) or 'minmax' (bbox center).
+
+    Returns: (cropped_label, cropped_image_or_None, cropped_nii_affine).
+    """
+    if center_mode not in ('mean', 'minmax'):
+        raise ValueError(f"unknown center_mode {center_mode!r}")
+    B = label.shape[0]
+    spatial = tuple(label.shape[2:])
+    target_fov_vox = tuple(
+        int(s) if int(t) == -1 else int(t) for s, t in zip(spatial, target_fov_vox))
+
+    mask = (label != 0).any(dim=1)  # (B, D, H, W)
+    grids = torch.meshgrid(*[torch.arange(n, dtype=torch.float32, device=label.device)
+                             for n in spatial], indexing='ij')
+    dims = (1, 2, 3)
+    centers = []
+    for g in grids:
+        gb = g[None].expand(mask.shape)
+        if center_mode == 'mean':
+            c = (gb * mask).sum(dim=dims) / torch.clamp(mask.sum(dim=dims), min=1)
+            c = torch.trunc(c)
+        else:
+            inf = torch.tensor(float('inf'), device=label.device)
+            lo = torch.where(mask, gb, inf).amin(dim=dims)
+            hi = torch.where(mask, gb, -inf).amax(dim=dims)
+            c = torch.round((lo + hi) / 2.0)
+        centers.append(c)
+    center = torch.stack(centers, dim=-1)  # (B, 3) in (d, h, w) vox order
+
+    shape_dhw = torch.tensor(spatial, dtype=torch.float32, device=label.device)
+    pre = torch.eye(4, dtype=torch.float32, device=label.device).repeat(B, 1, 1)
+    # grid-space translation is in (x->W, y->H, z->D) vector order => flip
+    pre[:, :3, 3] = vox_to_grid_offset(center, shape_dhw).flip(-1)
+
+    cropped_image = None
+    if image is not None:
+        cropped_image, _, _ = nifti_grid_sample(
+            image, nii_affine, target_fov_mm, target_fov_vox,
+            is_label=False, pre_grid_sample_affine=pre)
+    cropped_label, _, cropped_nii = nifti_grid_sample(
+        label, nii_affine, target_fov_mm, target_fov_vox,
+        is_label=True, pre_grid_sample_affine=pre)
+    return cropped_label, cropped_image, cropped_nii
 
 
 def sample_slice_into_volume(slices, theta, out_spat):

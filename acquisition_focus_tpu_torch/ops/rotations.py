@@ -2,9 +2,10 @@
 (torch port of ``acquisition_focus_tpu/ops/rotations.py``).
 
 All functions are batched over leading dimensions and return homogeneous 4x4
-matrices. Random draws come from a ``torch.Generator``; torch and jax.random give
-different numbers from one seed, so :func:`affine_from_draws` takes the draws
-explicitly and the parity tests hand both frameworks the same ones.
+matrices. Training-time random draws come from a ``torch.Generator``; torch and
+jax.random give different numbers from one seed, so :func:`affine_from_draws` takes
+the draws explicitly and the parity tests hand both frameworks the same ones. The
+dataset build's fixed draws are JAX's own (:func:`random_affine_from_jax_key`).
 """
 
 import torch
@@ -125,3 +126,17 @@ def random_affine(generator, rotation_strength=0.2, zoom_strength=0.2,
     """One augmentation affine, (4, 4)."""
     return random_affine_batch(generator, 1, rotation_strength, zoom_strength,
                                offset_strength, dtype, device)[0]
+
+
+def random_affine_from_jax_key(key, rotation_strength=0.2, zoom_strength=0.2,
+                               offset_strength=0.0):
+    """The JAX package's ``random_affine(key, ...)`` with its own draws: ``key`` is
+    a ``utils.jax_prng`` key, split into the zoom, axis, frame and offset keys as
+    ``jax.random`` splits it. (4, 4) float32 on the CPU."""
+    from acquisition_focus_tpu_torch.utils import jax_prng
+    k_zoom, k_axis, k_one, k_off = jax_prng.split(key, 4)
+    draws = [torch.from_numpy(d) for d in (
+        jax_prng.uniform(k_zoom, (1,)), jax_prng.normal(k_axis, (1, 2)),
+        jax_prng.normal(k_one, (1, 2)), jax_prng.normal(k_off, (1, 3)))]
+    return affine_from_draws(*draws, rotation_strength, zoom_strength,
+                             offset_strength)[0]

@@ -23,20 +23,27 @@
    microbatch), then the same 4 steps from the same weights, batch and
    generator seed with ``'full'`` (K3 also as the input gradient, K4 as the weight
    gradient). Step 0's loss must agree between the two.
-4. The sweep: ``stage_sweep_run`` -> ``run_dl`` at full width (the same
-   configuration under ``'full'`` with ``theta_refresh_every=2``, 2 epochs per
-   stage, all four stages ``opt_view0..2`` and ``ref``) on an in-memory phantom
-   dataset: locnet epoch, ``theta_pass``, cached-theta epoch, ``eval_step``,
-   device surface metrics, checkpoints and their chaining. Every kernel must have
-   launched during the sweep; frozen views' ATMs must stay bit-equal. Per stage it
-   prints what the run wrote (sweep state, ``metrics.jsonl``); then it times the
-   runner's calls apart once: a locnet and a cached-theta step, the heavy metrics,
-   a checkpoint load and save.
-5. A small float32 configuration on the GPU held against the same forward,
+4. The dataset build: 14 phantom cases written as NIfTI files at 128^3, 1.5 mm,
+   built by ``load_or_build`` on the card (seconds per case); the 2 test cases
+   built again on the CPU with the card's centroid affines injected: labels equal
+   (at most ``BUILD_CASE_TOL`` of the voxels differ), view and input affines and
+   images within 1e-3; the two centroid fits' difference printed, not gated.
+5. The sweep through the CLI: ``main.main(['--meta_config_path', meta])`` builds
+   the dataset from those files on the card and runs ``stage_sweep_run`` ->
+   ``run_dl`` at full width (the same configuration under ``'full'`` with
+   ``theta_refresh_every=2``, 2 epochs per stage, fold 0, all four stages
+   ``opt_view0..2`` and ``ref``) on the build's p2CH view planes: locnet epoch,
+   ``theta_pass``, cached-theta epoch, ``eval_step``, device surface metrics,
+   checkpoints and their chaining. Every kernel must have launched during the CLI
+   run; frozen views' ATMs must stay bit-equal. Per stage it prints what the run
+   wrote (sweep state, ``metrics.jsonl``); then it times the runner's calls apart
+   once: a locnet and a cached-theta step, the heavy metrics, a checkpoint load
+   and save.
+6. A small float32 configuration on the GPU held against the same forward,
    ``theta_pass`` and ``eval_step`` on the CPU, where every wrapper takes its plain
    version.
-6. The last line is {"ok": true, "device": {...}}; the line before it lists the
-   kernels as JSON: launches during the sweep and per training step of each mode
+7. The last line is {"ok": true, "device": {...}}; the line before it lists the
+   kernels as JSON: launches during the CLI run and per training step of each mode
    (``launches_per_step``), the largest error against the plain version, the bf16
    kernel and plain times summed over the main path's shapes (K1: three views per
    launch; ``one_view_*``: the one-view launches), the least time the card
@@ -664,50 +671,121 @@ def host_s(fn, calls=3):
     return sum(times[1:]) / (calls - 1)
 
 
-def run_sweep(tmp):
-    """The stage sweep at full width: ``stage_sweep_run`` -> ``run_dl`` for
-    opt_view0..2 and ref, 2 epochs each (epoch 0 trains the locnet, epoch 1 runs
-    from cached thetas and computes the heavy metrics on the device), on 10
-    phantom training cases (8 train, 2 val) and 2 test cases at 128^3. Per stage
-    it reads what the run writes: the sweep state (saves, the transform checkpoint
-    each opt stage loaded) and ``metrics.jsonl`` (epoch seconds, scores)."""
-    from acquisition_focus_tpu_torch.data.base_dataset import BaseDataset
-    from acquisition_focus_tpu_torch.data.phantom import phantom_cases
+N_CASES = 14                # 12 training cases (fold 0: 8 train, 4 val) + 2 test
+BUILD_CASE_TOL = 1e-5       # share of a volume's voxels whose label may differ
+                            # between the card's and the CPU's build
+
+
+def run_build(tmp):
+    """The dataset build on the card: ``write_phantom_dataset`` writes 14 phantom
+    cases at 128^3 and 1.5 mm (the default 128^3 @ 192 mm hires grid, not cut) as
+    NIfTI files; the port's ``load_or_build`` builds the training and test sets
+    from them on the card with the cache off (hires resample, clinical views,
+    centroid fit, prescan, reoriented volumes, input view affines). The 2 test
+    cases are built again on the CPU with the card's centroid affines injected, and
+    everything downstream of them compared; the centroid fits of the two builds are
+    compared apart, without a gate. Returns the data directory."""
+    from acquisition_focus_tpu_torch.data import base_dataset
+    from acquisition_focus_tpu_torch.data.cache import load_or_build
+    from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
+    from acquisition_focus_tpu_torch.data.synthetic import write_phantom_dataset
+    from acquisition_focus_tpu_torch.engine.runner import load_config
+
+    data = tmp / 'data'
+    t0 = time.perf_counter()
+    write_phantom_dataset(data, n_cases=N_CASES, shape=(128,) * 3, n_test=2)
+    log(f"build: {N_CASES} phantom cases written at 128^3, 1.5 mm in "
+        f"{time.perf_counter() - t0:.1f} s")
+    config = load_config(overrides=dict(use_caching=False))
+    built, fits = {}, []
+    original = base_dataset.register_centroids
+    for state, device in (('train', None), ('test', None), ('test', 'cpu')):
+        where = 'cuda' if device is None else device
+        if device == 'cpu':
+            card = built['test', 'cuda']
+            queue = [card.cases[c]['gt_view_affines']['centroids'].astype(np.float32)
+                     for c in sorted(card.cases)]
+
+            def inject(fixed, moving, dof=6, seed=0):
+                fits.append(original(fixed, moving, dof=dof, seed=seed))
+                return queue.pop(0)
+
+            base_dataset.register_centroids = inject
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            ds = load_or_build(MMWHSDataset, data, config, state, device=device)
+        finally:
+            base_dataset.register_centroids = original
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        built[state, where] = ds
+        log(f"  {state} on {where}: {len(ds)} cases in {dt:.2f} s, "
+            f"{dt / len(ds):.3f} s per case")
+
+    card, cpu = built['test', 'cuda'], built['test', 'cpu']
+    for (cid, a), fit in zip(sorted(card.cases.items()), fits):
+        b = cpu.cases[cid]
+        for k in ('label', 'prescan_gt'):
+            n = int((a[k] != b[k]).sum())
+            log(f"  {cid} {k}: {n} of {a[k].size} voxels differ (limit "
+                f"{BUILD_CASE_TOL:g} of them)")
+            if a[k].shape != b[k].shape or n > BUILD_CASE_TOL * a[k].size:
+                raise AssertionError(f"{cid} {k}: card and CPU builds differ at {n} voxels")
+        img = float(np.abs(a['image'] - b['image']).max())
+        aff = max(float(np.abs(a[k][v] - b[k][v]).max())
+                  for k in ('gt_view_affines', 'prescan_view_affines') for v in a[k])
+        inp = float(np.abs(a['input_view_affines'] - b['input_view_affines']).max())
+        log(f"  {cid}: image max abs diff {img:.3e} (tol 1e-3); view affines "
+            f"{aff:.3e}, input view affines {inp:.3e} (tol 1e-3)")
+        if not (img <= 1e-3 and aff <= 1e-3 and inp <= 1e-3):
+            raise AssertionError(f"{cid}: card and CPU builds disagree")
+        fit_diff = float(np.abs(fit - a['gt_view_affines']['centroids']).max())
+        log(f"  {cid}: centroid fit, CPU vs card, max abs diff {fit_diff:.3e} (not "
+            f"gated: 500 AdamW steps that do not converge amplify the class centers' "
+            f"float32 rounding, PARITY.md)")
+    return data
+
+
+def run_sweep(tmp, data):
+    """The stage sweep through the CLI, at full width: ``main.main`` with a meta
+    config (DEFAULTS with epochs 2, 'full', theta_refresh_every 2, the built
+    phantom dataset, fold 0, cache off) builds the cases from the NIfTI files on
+    the card and runs opt_view0..2 and ref, 2 epochs each (epoch 0 trains the
+    locnet, epoch 1 runs from cached thetas and computes the heavy metrics on the
+    device), 8 training, 4 validation and 2 test cases at 128^3, with the build's
+    p2CH view planes. Per stage it reads what the run writes: the sweep state
+    (saves, the transform checkpoint each opt stage loaded) and ``metrics.jsonl``
+    (epoch seconds, scores)."""
+    from acquisition_focus_tpu_torch import main as cli
     from acquisition_focus_tpu_torch.engine.checkpoint import load_checkpoint
     from acquisition_focus_tpu_torch.engine.runner import load_config
-    from acquisition_focus_tpu_torch.main import get_std_stages, stage_sweep_run
     from acquisition_focus_tpu_torch.ops.kernels import _lib
 
     state_path = tmp / 'sweep_state.json'
-    config = load_config(overrides=dict(
+    meta = tmp / 'meta.json'
+    meta.write_text(json.dumps(dict(
         epochs=2, use_pallas_conv3d='full', theta_refresh_every=2, save_every='best',
-        do_output=True, sweep_state_path=str(state_path),
-        log_dir=str(tmp / 'runs'), mdl_save_prefix=str(tmp / 'models')))
-    spacing = tuple(m / v for m, v in zip(config['hires_fov_mm'], config['hires_fov_vox']))
-    n_views = len(config['base_views'])
-    t0 = time.perf_counter()
-    train_ds = BaseDataset.from_cases(
-        phantom_cases(10, config['hires_fov_vox'], spacing, n_views), config)
-    test_ds = BaseDataset.from_cases(
-        phantom_cases(2, config['hires_fov_vox'], spacing, n_views, first_seed=100),
-        config, state='test')
-    fold = (0, (list(range(8)), [8, 9]))
-    log(f"sweep: DEFAULTS with epochs 2, use_pallas_conv3d 'full', theta_refresh_every 2, "
-        f"save_every 'best'; {n_views} views, {config['hires_fov_vox']} @ "
-        f"{config['hires_fov_mm']} mm, batch {config['batch_size']} x accum "
-        f"{config['num_grad_accum_steps']}, {config['compute_dtype']}; phantom cases "
-        f"built in {time.perf_counter() - t0:.1f} s (8 train, 2 val, 2 test)")
+        do_output=True, sweep_state_path=str(state_path), log_dir=str(tmp / 'runs'),
+        mdl_save_prefix=str(tmp / 'models'), dataset=['synthetic', str(data)],
+        fold_override=0, use_caching=False)))
+    config = load_config(None, meta)
+    log(f"sweep: python -m acquisition_focus_tpu_torch.main --meta_config_path {meta.name}: "
+        f"DEFAULTS with epochs 2, use_pallas_conv3d 'full', theta_refresh_every 2, "
+        f"save_every 'best', fold 0, cache off; {config['base_views']} views, "
+        f"{config['hires_fov_vox']} @ {config['hires_fov_mm']} mm, batch "
+        f"{config['batch_size']} x accum {config['num_grad_accum_steps']}, "
+        f"{config['compute_dtype']}")
     log(f"  free disk under the run directory: {shutil.disk_usage(tmp).free} B")
 
     torch.cuda.synchronize()
     _lib.reset_launch_counts()
     t0 = time.perf_counter()
-    stage_sweep_run(str(tmp), 'smoke', config, fold, get_std_stages(config), train_ds,
-                    test_ds, False)
+    cli.main(['--meta_config_path', str(meta), '--base_dir', str(tmp)])
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
-    log(f"  sweep {sweep_s:.1f} s; kernel launches in the sweep: {launches}")
+    log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels not launched in the sweep: {missing}")
@@ -759,8 +837,8 @@ def run_sweep(tmp):
         if changed or not moved:
             raise AssertionError(f"{key}: frozen ATM tensors changed {changed[:3]}, "
                                  f"trained view moved {len(moved)}")
-    log(f"  epochs {epochs_total:.3f} s of the sweep's {sweep_s:.3f} s; the rest is the "
-        f"stages' model builds, checkpoint loads and saves")
+    log(f"  epochs {epochs_total:.3f} s of the CLI run's {sweep_s:.3f} s; the rest is "
+        f"the dataset build, the stages' model builds, checkpoint loads and saves")
     torch.cuda.empty_cache()
     time_runner_calls(tmp, config, completed[keys[-2]]['save_path'])
     return launches
@@ -893,7 +971,8 @@ def main():
     full = run_steps('full')
     compare_modes(fwd, full)
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
-        launches = run_sweep(Path(tmp))
+        data = run_build(Path(tmp))
+        launches = run_sweep(Path(tmp), data)
     check_small_reference()
 
     sources = {

@@ -1,0 +1,219 @@
+"""The port's CLI (``acquisition_focus_tpu_torch/main.py``) and run summaries
+(``utils/results.py``) on the CPU: fold construction against the JAX package's,
+``main()`` end to end on a phantom dataset written to disk, the result tables, and
+every shipped meta config either building its stages' models or refusing an
+unported option by name.
+"""
+
+import glob
+import json
+import warnings
+from pathlib import Path
+
+import numpy as np
+import pandas as pd
+import pytest
+import torch
+
+from acquisition_focus_tpu.data.mmwhs import MMWHSDataset as JMMWHS
+from acquisition_focus_tpu.data.mrxcat import MRXCATDataset as JMRXCAT
+from acquisition_focus_tpu.engine.config import load_config as jload_config
+from acquisition_focus_tpu.utils import results as jresults
+from main import build_fold_iter as jbuild_fold_iter
+from acquisition_focus_tpu_torch import main as tmain
+from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
+from acquisition_focus_tpu_torch.data.mrxcat import MRXCATDataset
+from acquisition_focus_tpu_torch.data.synthetic import write_phantom_dataset
+from acquisition_focus_tpu_torch.engine.config import load_config
+from acquisition_focus_tpu_torch.engine.runner import check_ported_config, spec_from_config
+from acquisition_focus_tpu_torch.engine.stages import get_std_stages, merge_stage_config
+from acquisition_focus_tpu_torch.engine.train import make_models
+from acquisition_focus_tpu_torch.utils import results as tresults
+
+REPO = Path(__file__).resolve().parent.parent
+TAGS = ('MYO', 'LV', 'RV', 'LA', 'RA')
+
+
+@pytest.fixture(scope='module', autouse=True)
+def few_threads():
+    """Many small ops: with several test workers on one machine, one intra-op
+    thread per core oversubscribes the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+# ---------------------------------------------------------------- folds
+
+def _split_dataset(cls, tmp_path, files):
+    (tmp_path / 'metadata').mkdir(parents=True, exist_ok=True)
+    train, test = files[:-4], files[-4:]
+    from acquisition_focus_tpu_torch.data.preprocess import write_data_split
+    write_data_split(tmp_path, train, test, num_folds=3)
+    ds = cls(tmp_path, load_config(), state='empty')
+    ds.cases = {ds.extract_3d_id(cls.get_file_id(f)[0]): None for f in train}
+    return ds
+
+
+@pytest.mark.parametrize('family', ['mmwhs', 'mrxcat'])
+@pytest.mark.parametrize('over', [dict(fold_override=None), dict(fold_override=1),
+                                  dict(num_folds=0)])
+def test_build_fold_iter_matches_jax(tmp_path, family, over):
+    if family == 'mmwhs':
+        files = [f'mr_train_{i:04d}_{k}.nii.gz' for i in range(1001, 1012)
+                 for k in ('image', 'label')]
+        tcls, jcls = MMWHSDataset, JMMWHS
+    else:
+        files = [f'phantom_{p:03d}_t{t:03d}_{k}.nii.gz' for p in range(1, 4)
+                 for t in range(1, 4) for k in ('image', 'label')]
+        tcls, jcls = MRXCATDataset, JMRXCAT
+    tds = _split_dataset(tcls, tmp_path, files)
+    jds = jcls(tmp_path, jload_config(), state='empty')
+    jds.cases = dict(tds.cases)
+    config = dict(load_config(), **over)
+    got = tmain.build_fold_iter(config, tds)
+    assert got == jbuild_fold_iter(config, jds)
+    assert len(got) == (1 if over.get('fold_override') is not None or
+                        over.get('num_folds') == 0 else 3)
+
+
+# ---------------------------------------------------------------- main()
+
+def test_main_runs_the_stage_sweep_from_nifti_files(tmp_path):
+    """``main([...], device='cpu')`` on a 6-case 32^3 phantom dataset at skinny
+    widths: both datasets built from the files, fold 0, one epoch per stage; every
+    stage completes, chains its transform checkpoint and writes its metrics."""
+    write_phantom_dataset(tmp_path / 'data', n_cases=6, shape=(32,) * 3)
+    meta = dict(
+        dataset=['synthetic', str(tmp_path / 'data')], fold_override=0, use_caching=False,
+        epochs=1, hires_fov_mm=[48.0] * 3, hires_fov_vox=[32] * 3,
+        prescan_fov_mm=[48.0] * 3, prescan_fov_vox=[32] * 3,
+        slice_fov_mm=[48.0, 48.0, 1.5], slice_fov_vox=[32, 32, 1],
+        base_features=[2, 4, 4, 8], locnet_width=2, batch_size=1,
+        num_grad_accum_steps=2, compute_dtype='float32', base_views=['p2CH', 'p4CH'],
+        num_sa_slices=3, sweep_state_path=str(tmp_path / 'sweep_state.json'),
+        log_dir=str(tmp_path / 'runs'), mdl_save_prefix=str(tmp_path / 'models'),
+        do_output=False)
+    (tmp_path / 'meta.json').write_text(json.dumps(meta))
+    tmain.main(['--meta_config_path', str(tmp_path / 'meta.json'),
+                '--base_dir', str(tmp_path)], device='cpu')
+
+    state = json.loads((tmp_path / 'sweep_state.json').read_text())
+    keys = list(state['completed'])
+    assert keys == ['fold-0/opt_view0', 'fold-0/opt_view1', 'fold-0/ref']
+    assert state['in_progress'] is None
+    first = state['completed'][keys[0]]
+    assert first['run_name'].endswith('_cpu_fold-0_stage-opt_view0')
+    assert state['completed'][keys[1]]['transform_model_checkpoint_path'] == \
+        first['save_path']
+    for rec in state['completed'].values():
+        assert Path(rec['save_path']).exists()
+        lines = [json.loads(line) for line in
+                 (tmp_path / 'runs' / rec['run_name'] / 'metrics.jsonl').read_text()
+                 .splitlines()]
+        losses = [v for r in lines for k, v in r.items() if k.startswith('losses/')]
+        assert losses and np.isfinite(losses).all()
+        assert any('scores/test_mean_oa_exclude_bg_dice' in r for r in lines)
+
+
+# ---------------------------------------------------------------- results
+
+def _write_run(log_dir, name, dice_by_tag, oa, steps=(10, 20)):
+    run = log_dir / name
+    run.mkdir(parents=True)
+    with open(run / 'metrics.jsonl', 'w') as f:
+        for s in steps:
+            rec = {'step': s, 'losses/train_loss': 1.0 / s}
+            scale = 1.0 if s == steps[-1] else 0.01
+            for t, v in dice_by_tag.items():
+                rec[f'scores/test_mean_dice_{t}'] = v * scale
+            rec['scores/test_mean_oa_exclude_bg_dice'] = oa * scale
+            f.write(json.dumps(rec) + '\n')
+
+
+def test_results_tables_match_jax(tmp_path):
+    for fold in range(3):
+        _write_run(tmp_path, f'run_fold-{fold}_stage-opt_view0',
+                   {t: 0.4 + 0.1 * fold for t in TAGS}, oa=0.4 + 0.1 * fold)
+        _write_run(tmp_path, f'run_fold-{fold}_stage-ref', {t: 0.7 for t in TAGS}, oa=0.7)
+    _write_run(tmp_path, 'plain_fold-0', {t: 0.3 for t in TAGS}, oa=0.3)
+    table = tresults.dice_table(tmp_path)
+    assert list(table.columns) == list(TAGS) + ['overall']
+    pd.testing.assert_frame_equal(table, jresults.dice_table(tmp_path))
+    mean, std = tresults.cross_fold_table(tmp_path)
+    jmean, jstd = jresults.cross_fold_table(tmp_path)
+    pd.testing.assert_frame_equal(mean, jmean)
+    pd.testing.assert_frame_equal(std, jstd)
+    assert set(mean.index) == {'opt_view0', 'ref', 'main'}
+    assert np.allclose(mean.loc['opt_view0'], 0.5)
+    assert np.allclose(std.loc['opt_view0', 'MYO'], np.std([0.4, 0.5, 0.6]))
+    run = tmp_path / 'run_fold-0_stage-ref'
+    pd.testing.assert_frame_equal(tresults.load_run_metrics(run),
+                                  jresults.load_run_metrics(run))
+
+
+def test_results_of_an_empty_log_dir(tmp_path):
+    assert tresults.summarize_runs(tmp_path).empty
+    mean, std = tresults.cross_fold_table(tmp_path)
+    assert mean.empty and std.empty
+
+
+# ---------------------------------------------------------------- shipped configs
+
+def _configs():
+    return sorted(glob.glob(str(REPO / 'meta_configs' / 'meta_configs_*' /
+                                'config_dict_id*.json')))
+
+
+def _unported(config):
+    """The option a shipped config needs that the port does not have, or None."""
+    if config.get('model_type', 'hybrid-unet') != 'hybrid-unet':
+        return 'model_type'
+    if config.get('clinical_view_affine_type') == 'from-segmented':
+        return 'from-segmented'
+    return None
+
+
+def _build_specs(meta_path):
+    """Every stage's train and test StageSpec of one config at skinny widths, and
+    its models on the CPU; raises where an option is not ported."""
+    config = load_config(None, meta_path)
+    config['base_features'] = [4, 4, 8, 8, 8, 8]
+    config['locnet_width'] = 4
+    num_classes = 2 if config.get('use_binarized_labels') else 6
+    check_ported_config(config)
+    built = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')     # unchained opt_view stages warn
+        for stage in get_std_stages(config):
+            stage.activate()
+            sc = merge_stage_config(config, stage)
+            n_active = int(sc.get('n_active_views') or len(sc['base_views']))
+            train = spec_from_config(sc, num_classes, n_active, 'train')
+            spec_from_config(sc, num_classes, n_active, 'test')
+            unet, atms = make_models(train, 'cpu')
+            assert len(atms) == train.n_views and train.num_classes in (2, 6)
+            built += 1
+    return built
+
+
+@pytest.mark.parametrize('meta_path', _configs(), ids=lambda p: '/'.join(Path(p).parts[-2:]))
+def test_every_config_builds_or_names_what_is_missing(meta_path):
+    """A config builds its port StageSpecs and models, or raises
+    ``NotImplementedError`` naming the option it needs: (E)Pix2Vox or the
+    from-segmented path."""
+    need = _unported(json.loads(Path(meta_path).read_text()))
+    if need is None:
+        assert _build_specs(meta_path) >= 1
+    else:
+        with pytest.raises(NotImplementedError, match=need):
+            _build_specs(meta_path)
+
+
+def test_32_of_54_shipped_configs_build():
+    configs = _configs()
+    needs = [_unported(json.loads(Path(p).read_text())) for p in configs]
+    assert len(configs) == 54
+    assert needs.count(None) == 32
+    assert needs.count('model_type') == 12 and needs.count('from-segmented') == 10

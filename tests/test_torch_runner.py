@@ -172,10 +172,11 @@ def test_metrics_jsonl_keys_match_jax(tmp_path, datasets):
             'perf/epoch_s', 'losses/train_loss'} <= flat
 
 
-def test_dataset_cache_written_by_jax_loads(tmp_path):
+def test_dataset_cache_written_by_jax_loads(tmp_path, monkeypatch):
     """The JAX package's ``load_or_build`` writes its pickle of numpy cases; the
     port's copy of it, given the port's dataset class, reads it back into it. A
-    miss needs the dataset build, which the port does not have yet."""
+    miss builds the dataset, on the card unless the caller passes ``device='cpu'``
+    (``test_torch_dataset.py``)."""
     from acquisition_focus_tpu.data.base_dataset import BaseDataset as JBaseDataset
     from acquisition_focus_tpu.data.cache import load_or_build as jload_or_build
     from acquisition_focus_tpu_torch.data.cache import load_or_build
@@ -199,5 +200,6 @@ def test_dataset_cache_written_by_jax_loads(tmp_path):
     assert batch.keys() == ref.keys()
     for k in batch:
         np.testing.assert_array_equal(batch[k], ref[k])
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         load_or_build(PhantomSet, tmp_path, cfg, 'test', cache_dir=tmp_path / 'cache')

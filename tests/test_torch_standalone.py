@@ -2,11 +2,14 @@
 
 The port keeps its own copies of the JAX package's plain-Python modules
 (``engine/config.py``, ``engine/stages.py``, ``utils/logging.py``,
-``utils/visualize.py``, ``data/synthetic.py``, ``data/cache.py``) instead of
-importing them; the tests here hold each copy equal to its original, and show in a
-subprocess that no module of the port imports anything of the JAX package.
+``utils/visualize.py``, ``data/synthetic.py``, ``data/cache.py``,
+``data/nifti_io.py``, ``utils/results.py``) instead of importing them; the tests
+here and in ``test_torch_dataset.py`` / ``test_torch_cli.py`` hold each copy equal
+to its original, and show in a subprocess that no module of the port imports
+anything of the JAX package.
 """
 
+import importlib
 import json
 import subprocess
 import sys
@@ -23,12 +26,16 @@ from acquisition_focus_tpu.engine import stages as jstages
 from acquisition_focus_tpu.utils import logging as jlogging
 from acquisition_focus_tpu_torch.data import cache as tcache
 from acquisition_focus_tpu_torch.data.base_dataset import BaseDataset
+from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
+from acquisition_focus_tpu_torch.data.nifti_io import save_nifti
 from acquisition_focus_tpu_torch.data.phantom import phantom_cases
 from acquisition_focus_tpu_torch.data.synthetic import make_heart_phantom as tphantom
+from acquisition_focus_tpu_torch.data.synthetic import write_phantom_dataset
 from acquisition_focus_tpu_torch.engine import config as tconfig
 from acquisition_focus_tpu_torch.engine import stages as tstages
 from acquisition_focus_tpu_torch.engine import train as ttrain
 from acquisition_focus_tpu_torch.engine.runner import run_dl
+from acquisition_focus_tpu_torch import main as tmain
 from acquisition_focus_tpu_torch.main import stage_sweep_run
 from acquisition_focus_tpu_torch.utils import logging as tlogging
 
@@ -191,14 +198,27 @@ def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
 
 
-@pytest.mark.parametrize('entry', ['make_models', 'run_dl', 'stage_sweep_run'])
+BUILD = dict(TINY, hires_fov_mm=[48.0] * 3, hires_fov_vox=[32] * 3,
+             prescan_fov_mm=[48.0] * 3, prescan_fov_vox=[32] * 3, num_sa_slices=3)
+
+
+@pytest.mark.parametrize('entry', ['make_models', 'run_dl', 'stage_sweep_run',
+                                   'BaseDataset', 'load_or_build', 'main',
+                                   'preprocess_mmwhs', 'preprocess_mrxcat'])
 def test_entry_points_default_to_the_card(no_cuda, tmp_path, entry):
     """Without CUDA each entry point raises unless the caller passes
-    ``device='cpu'``; with it, the CPU run goes through (no epoch here)."""
+    ``device='cpu'`` (the preprocess CLIs: ``--device cpu``); with it, the CPU
+    run goes through (no epoch here)."""
     cfg = tconfig.load_config(overrides=dict(TINY, log_dir=str(tmp_path / 'runs'),
                                              mdl_save_prefix=str(tmp_path / 'models')))
     ds = BaseDataset.from_cases(phantom_cases(1, (16,) * 3, (1.5,) * 3, 2), cfg)
     fold = (0, ([0], []))
+    data = tmp_path / 'data'
+    build_cfg = tconfig.load_config(overrides=dict(
+        BUILD, dataset=['synthetic', str(data)], log_dir=str(tmp_path / 'runs'),
+        mdl_save_prefix=str(tmp_path / 'models')))
+    if entry in ('BaseDataset', 'load_or_build', 'main'):
+        write_phantom_dataset(data, n_cases=3, shape=(32,) * 3)
     if entry == 'make_models':
         spec = ttrain.StageSpec(n_views=2, num_classes=6, n_active_views=2,
                                 view_optimization_mode='opt-all', use_affine_theta=True,
@@ -211,13 +231,42 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, entry):
     elif entry == 'run_dl':
         def call(**kw):
             return run_dl(str(tmp_path), cfg, fold, training_dataset=ds, **kw)
-    else:
+    elif entry == 'stage_sweep_run':
         def call(**kw):
             return stage_sweep_run(str(tmp_path), 'sw', cfg, fold,
                                    tstages.get_std_stages(cfg), ds, None, False, **kw)
+    elif entry == 'BaseDataset':
+        def call(**kw):
+            return sorted(MMWHSDataset(data, build_cfg, state='test', **kw).cases)
+    elif entry == 'load_or_build':
+        def call(**kw):
+            return sorted(tcache.load_or_build(MMWHSDataset, data, build_cfg, 'test',
+                                               **kw).cases)
+    elif entry == 'main':
+        meta = tmp_path / 'meta.json'
+        meta.write_text(json.dumps(dict(build_cfg, num_folds=0, sweep_type=None)))
+
+        def call(**kw):
+            return tmain.main(['--meta_config_path', str(meta), '--base_dir',
+                               str(tmp_path)], **kw)
+    else:
+        module = importlib.import_module(f'acquisition_focus_tpu_torch.scripts.{entry}')
+        raw = tmp_path / 'raw'
+        raw.mkdir()
+        lbl = np.zeros((12,) * 3, np.int16)
+        lbl[4:8, 4:8, 4:8] = 500 if entry == 'preprocess_mmwhs' else 5
+        stem = 'mr_train_1001' if entry == 'preprocess_mmwhs' else 'phantom_001_t001'
+        save_nifti(raw / f'{stem}_image.nii.gz', lbl.astype(np.float32), np.eye(4))
+        save_nifti(raw / f'{stem}_label.nii.gz', lbl, np.eye(4))
+
+        def call(device=None):
+            argv = ['--raw_dir', str(raw), '--out_dir', str(tmp_path / 'out')]
+            return module.main(argv + (['--device', device] if device else []))
+    want = {'make_models': torch.device('cpu'),
+            'BaseDataset': ['mr_0002', 'mr_0003'],
+            'load_or_build': ['mr_0002', 'mr_0003']}.get(entry)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call(device='cuda')
-    got = call(device='cpu')
-    assert got == (torch.device('cpu') if entry == 'make_models' else None)
+    assert call(device='cpu') == want

@@ -37,8 +37,8 @@ import acquisition_focus_tpu_torch.models.localization as tloc
 import acquisition_focus_tpu_torch.ops.resample as tres
 from acquisition_focus_tpu_torch.engine import train as ttrain
 from test_torch_train_step import (
-    SKINNY, all_pairs, is_pre_norm_bias, leaf_scales, make_batch, to_np, torch_batch,
-    torch_setup)
+    BATCH_SEED, LABEL_OPTIONS, SKINNY, all_pairs, is_pre_norm_bias, leaf_scales,
+    make_batch, to_np, torch_batch, torch_setup)
 
 SEEDS = range(10)
 ACT_AGREE = 1e-3       # max |JAX - port| of a pre-activation record
@@ -146,22 +146,26 @@ def _nearest(x, refs):
     return min(cands, key=lambda t: t[0]) if cands else (np.inf, None)
 
 
-@pytest.fixture(scope='module')
-def setup():
-    """Instrumented JAX gradient (jitted once for all seeds) and the port's hooks.
-    JAX's jit caches are cleared on both sides, so neither an earlier trace nor the
-    instrumented one leaks across tests."""
+# the unpatched samplers, for a hook installed while another fixture's hooks are
+_ORIGINALS = dict(jres_to_vox=jres._to_vox, tres_to_vox=tres._to_vox)
+
+
+def _instrumented(options):
+    """Instrumented JAX gradient of ``options``' spec (jitted once for all its
+    seeds) and the port's hooks. JAX's jit caches are cleared on both sides, so
+    neither an earlier trace nor the instrumented one leaks across tests."""
     jax.clear_caches()
     rec = _Recorder()
-    imp = _Imposer(tres._to_vox)
+    imp = _Imposer(_ORIGINALS['tres_to_vox'])
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(flax_nn, 'leaky_relu', rec.leaky_relu)
-        mp.setattr(jres, '_to_vox', functools.partial(rec.to_vox, orig=jres._to_vox))
+        mp.setattr(jres, '_to_vox', functools.partial(rec.to_vox,
+                                                      orig=_ORIGINALS['jres_to_vox']))
         mp.setattr(tloc, 'leaky_relu', imp.leaky_relu)
         mp.setattr(thybrid, 'leaky_relu', imp.leaky_relu)
         mp.setattr(tres, '_to_vox', imp.to_vox)
 
-        spec_j = jtrain.StageSpec(**SKINNY)
+        spec_j = jtrain.StageSpec(**options)
         unet_j, atms_j = jtrain.make_models(spec_j)
         up, ap = jtrain.init_params(spec_j, jax.random.key(0))
 
@@ -170,8 +174,18 @@ def setup():
                                   None, train=True)[0]
 
         yield dict(rec=rec, imp=imp, grad_fn=jax.jit(jax.grad(loss_fn)), params=(up, ap),
-                   params_np=(to_np(up), to_np(ap)), spec=ttrain.StageSpec(**SKINNY))
+                   params_np=(to_np(up), to_np(ap)), spec=ttrain.StageSpec(**options))
     jax.clear_caches()
+
+
+@pytest.fixture(scope='module')
+def setup():
+    yield from _instrumented(SKINNY)
+
+
+@pytest.fixture(params=list(LABEL_OPTIONS))
+def option_setup(request):
+    yield from _instrumented(dict(SKINNY, **LABEL_OPTIONS[request.param]))
 
 
 def _jax_step_grads(setup, batch):
@@ -206,8 +220,9 @@ def _port_step_grads(setup, batch, imposed=None):
     return dict(unet=unet, atms=atms), records
 
 
-@pytest.mark.parametrize('seed', SEEDS)
-def test_grads_match_with_kink_branches_aligned(setup, seed):
+def _check_aligned(setup, seed):
+    """The port's gradients with JAX's branch choices imposed: every leaf at the
+    tolerances of ``test_torch_train_step.py``."""
     batch = make_batch(setup['spec'], np.random.default_rng(seed))
     grads_j, jax_records = _jax_step_grads(setup, batch)
     _, port_records = _port_step_grads(setup, batch)
@@ -238,3 +253,14 @@ def test_grads_match_with_kink_branches_aligned(setup, seed):
             continue
         np.testing.assert_allclose(got / scales[name], ref / scales[name], atol=1e-4,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize('seed', SEEDS)
+def test_grads_match_with_kink_branches_aligned(setup, seed):
+    _check_aligned(setup, seed)
+
+
+def test_label_option_grads_match_with_kink_branches_aligned(option_setup):
+    """Binarized labels, the LV-only loss and both, on the batch of
+    ``test_torch_train_step.py``."""
+    _check_aligned(option_setup, BATCH_SEED)
