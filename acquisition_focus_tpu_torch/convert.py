@@ -9,12 +9,20 @@ Inputs are the flax param trees as nested dicts of numpy arrays
   axes, then transposed to (Ci, Co, 2, 2, 2): flax's transposed conv equals torch's
   ``ConvTranspose3d`` only with the kernel flipped;
 * ``Dense`` kernels (in, out) -> (out, in);
-* GroupNorm scale/bias -> ``InstanceNorm*d(affine=True)`` weight/bias;
+* GroupNorm scale/bias -> ``InstanceNorm*d(affine=True)`` weight/bias, and the
+  EPix2Vox batch norms' scale/bias -> ``models.epix2vox.BatchNorm`` weight/bias;
 * the stacked ATM params carry a leading view axis, split across the ModuleList.
+
+The EPix2Vox transposed convs (4^3 stride 2, and the 1^3 head) take the same flip
+and transpose as the U-Net's 2^3 ones.
 """
+
+import re
 
 import numpy as np
 import torch
+
+from acquisition_focus_tpu_torch.models.epix2vox import EPix2VoxModel128
 
 
 def _conv(kernel):
@@ -78,8 +86,43 @@ def atm_state_dicts(flax_params):
     return dicts
 
 
+# the EPix2Vox modules' transposed convs: the decoder's up{i} and head, the
+# refiner's u{i} and u_out
+_EPIX_CONV_T = re.compile(r'(up\d+|head|u\d+|u_out)$')
+
+
+def epix2vox_state_dict(flax_params):
+    """EPix2VoxModel128 (or any of its parts, e.g. a bare Epix2VoxRefiner) params
+    -> the port module's state_dict: flax's module names are the port's."""
+    out = {}
+
+    def walk(prefix, tree):
+        if 'scale' in tree:                             # BatchNorm
+            out[f'{prefix}weight'] = tree['scale']
+            out[f'{prefix}bias'] = tree['bias']
+        elif 'kernel' in tree:
+            kernel = tree['kernel']
+            if kernel.ndim == 2:                        # Dense
+                out[f'{prefix}weight'] = kernel.T
+            elif _EPIX_CONV_T.match(prefix.rstrip('.').rsplit('.', 1)[-1]):
+                out[f'{prefix}weight'] = _conv_transpose(kernel)
+            else:
+                out[f'{prefix}weight'] = _conv(kernel)
+            if 'bias' in tree:
+                out[f'{prefix}bias'] = tree['bias']
+        else:
+            for name, sub in tree.items():
+                walk(f'{prefix}{name}.', sub)
+
+    walk('', flax_params['params'])
+    return _to_torch(out)
+
+
 def load_flax_params(unet, atms, unet_params, atm_params):
-    """Load converted flax params into the port's modules (strict)."""
-    unet.load_state_dict(unet_state_dict(unet_params))
+    """Load converted flax params into the port's modules (strict); ``unet`` is the
+    hybrid U-Net or the EPix2Vox model."""
+    unet.load_state_dict(epix2vox_state_dict(unet_params)
+                         if isinstance(unet, EPix2VoxModel128)
+                         else unet_state_dict(unet_params))
     for module, sd in zip(atms, atm_state_dicts(atm_params)):
         module.load_state_dict(sd)

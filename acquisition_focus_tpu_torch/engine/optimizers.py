@@ -3,7 +3,9 @@ port of ``acquisition_focus_tpu/engine/optimizers.py``):
 
   reconstruction: AdamW(lr, weight_decay=0.01), ExponentialLR(gamma=0.995) per epoch;
   transform:      AdamW(2*lr, weight_decay=0.1),
-                  CosineAnnealingWarmRestarts(T_0=epochs//4+1, T_mult=1) per epoch.
+                  CosineAnnealingWarmRestarts(T_0=epochs//4+1, T_mult=1) per epoch;
+  (E)Pix2Vox:     Adam, merger 1e-4 and everything else 1e-3,
+                  MultiStepLR(milestones=[150], gamma=0.5) per epoch.
 
 Schedules are keyed to the update count through ``LambdaLR``: update k (0-based)
 runs at base_lr * factor(k), with the epoch taken as k // updates_per_epoch. Each
@@ -45,3 +47,22 @@ def make_transform_optimizer(params, lr, epochs, updates_per_epoch, use_scheduli
     factor = (cosine_warm_restarts_epoch_factor(t_0, updates_per_epoch)
               if use_scheduling else None)
     return _adamw(params, 2.0 * lr, 0.1, factor)
+
+
+def multistep_epoch_factor(milestone, gamma, updates_per_epoch):
+    def factor(count):
+        return gamma if count // max(1, updates_per_epoch) >= milestone else 1.0
+    return factor
+
+
+def make_epix2vox_optimizer(model, updates_per_epoch, use_scheduling=True):
+    """The (E)Pix2Vox reconstruction optimizer: Adam (betas 0.9/0.999, eps 1e-8, no
+    weight decay) over two param groups, everything but the merger at 1e-3 (group
+    0) and the merger at 1e-4 (group 1), halved from epoch 150 on."""
+    merger = [p for n, p in model.named_parameters() if n.startswith('merger.')]
+    main = [p for n, p in model.named_parameters() if not n.startswith('merger.')]
+    opt = torch.optim.Adam([{'params': main, 'lr': 1e-3}, {'params': merger, 'lr': 1e-4}],
+                           betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    factor = (multistep_epoch_factor(150, 0.5, updates_per_epoch) if use_scheduling
+              else (lambda count: 1.0))
+    return opt, torch.optim.lr_scheduler.LambdaLR(opt, factor)

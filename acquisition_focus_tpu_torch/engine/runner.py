@@ -31,10 +31,10 @@ from acquisition_focus_tpu_torch.engine.metrics import (
     accumulate_label_scores, hausdorff_per_class, hausdorff_per_class_device,
     iou_per_class_labels, reduce_label_scores)
 from acquisition_focus_tpu_torch.engine.optimizers import (
-    make_reconstruction_optimizer, make_transform_optimizer)
+    make_epix2vox_optimizer, make_reconstruction_optimizer, make_transform_optimizer)
 from acquisition_focus_tpu_torch.engine.train import (
-    StageSpec, eval_step, init_params, make_models, resolve_device, theta_pass,
-    train_step)
+    EPIX2VOX_TYPES, StageSpec, eval_step, init_params, make_models, resolve_device,
+    theta_pass, train_step)
 from acquisition_focus_tpu_torch.geometry.clinical_views import get_class_volumes
 from acquisition_focus_tpu_torch.ops.affine import affine_zooms
 from acquisition_focus_tpu_torch.utils.logging import RunLogger, get_global_idx
@@ -157,8 +157,11 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
     accum = config['num_grad_accum_steps']
     updates_per_epoch = max(1, len(train_idxs) // (B * accum))
     use_sched = config.get('use_scheduling', True)
-    recon_opt = make_reconstruction_optimizer(unet.parameters(), config['lr'],
-                                              updates_per_epoch, use_sched)
+    if spec.model_type in EPIX2VOX_TYPES:
+        recon_opt = make_epix2vox_optimizer(unet, updates_per_epoch, use_sched)
+    else:
+        recon_opt = make_reconstruction_optimizer(unet.parameters(), config['lr'],
+                                                  updates_per_epoch, use_sched)
     trans_opt = make_transform_optimizer(atms.parameters(), config['lr'], config['epochs'],
                                          updates_per_epoch, use_sched)
 

@@ -11,8 +11,11 @@ are not updated (so decoupled weight decay leaves them bit-unchanged).
 ``theta_pass`` snapshots every sample's thetas for the cached-theta cadence
 (``theta_source='cached'``: the step takes them from the batch and runs no
 localization net); ``eval_step`` is the forward-only step of validation and test.
-From-segmented slicing, slice alignment to the principal axis and EPix2Vox are not
-ported yet.
+Under ``model_type`` 'hybrid-EPix2Vox' / 'hybrid-Pix2Vox' the reconstruction model
+is ``EPix2VoxModel128``: the slices enter through its interface adapters (the
+views' foreground at 224^2, occupancy out as a background/foreground stack).
+From-segmented slicing and slice alignment to the principal axis are not ported
+yet.
 """
 
 import dataclasses
@@ -28,6 +31,8 @@ from acquisition_focus_tpu_torch.engine.losses import binarize_onehot, dice_ce_l
 from acquisition_focus_tpu_torch.engine.metrics import metrics_from_logits
 from acquisition_focus_tpu_torch.models.atm import (
     AffineTransformModule, apply_stacked_atms)
+from acquisition_focus_tpu_torch.models.epix2vox import (
+    EPix2VoxModel128, epix2vox_interface_input, epix2vox_interface_output, init_weights)
 from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3, HybridUnet
 from acquisition_focus_tpu_torch.ops.affine import compose
 from acquisition_focus_tpu_torch.ops.resample import (
@@ -89,9 +94,14 @@ class StageSpec:
         return mask
 
 
+EPIX2VOX_TYPES = ('hybrid-EPix2Vox', 'hybrid-Pix2Vox')
+
+
 def _check_ported(spec):
     missing = [name for name, on in (
-        (f"model_type={spec.model_type!r}", spec.model_type != 'hybrid-unet'),
+        # an unknown model type: the JAX package builds the hybrid U-Net for it
+        (f"model_type={spec.model_type!r}",
+         spec.model_type not in ('hybrid-unet',) + EPIX2VOX_TYPES),
         ("rotate_slice_to_min_principle", spec.rotate_slice_to_min_principle),
         ("atm_remat", spec.atm_remat),
         ("unet_remat", spec.unet_remat),
@@ -113,12 +123,19 @@ def resolve_device(device=None):
 
 
 def make_models(spec: StageSpec, device=None):
-    """(HybridUnet, nn.ModuleList of n_views AffineTransformModules) on ``device``
-    (``None``: the card; see :func:`resolve_device`)."""
+    """(reconstruction model, nn.ModuleList of n_views AffineTransformModules) on
+    ``device`` (``None``: the card; see :func:`resolve_device`). The reconstruction
+    model is the hybrid U-Net, or ``EPix2VoxModel128`` under an (E)Pix2Vox
+    ``model_type`` (its widths are fixed: ``base_features`` and ``compute_dtype``
+    do not apply to it)."""
     _check_ported(spec)
     device = resolve_device(device)
-    unet = HybridUnet(spec.n_views, spec.num_classes, tuple(spec.base_features),
-                      dtype=spec.dtype, use_pallas_conv=spec.use_pallas_conv3d)
+    if spec.model_type in EPIX2VOX_TYPES:
+        unet = EPix2VoxModel128(spec.n_views,
+                                use_epix2vox=spec.model_type == 'hybrid-EPix2Vox')
+    else:
+        unet = HybridUnet(spec.n_views, spec.num_classes, tuple(spec.base_features),
+                          dtype=spec.dtype, use_pallas_conv=spec.use_pallas_conv3d)
     atms = nn.ModuleList([
         AffineTransformModule(spec.num_classes, spec.optim_method,
                               spec.prescan_fov_vox[0], spec.offset_clip_value,
@@ -131,14 +148,20 @@ def make_models(spec: StageSpec, device=None):
 def init_params(unet, atms, generator):
     """Initialize in place from flax's distributions: lecun-normal weights
     (truncated normal on [-2, 2] std, std = sqrt(1/fan_in) / 0.8796), zero biases,
-    unit norm scales. Draws come from ``generator`` (CPU) in module order."""
+    unit norm scales; an EPix2Vox model takes its own Kaiming init
+    (``models.epix2vox.init_weights``). Draws come from ``generator`` (CPU) in
+    module order, the reconstruction model's first."""
     def lecun_normal(w, fan_in):
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         t = torch.empty(w.shape)
         nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
         w.copy_(t)
 
-    for m in list(unet.modules()) + list(atms.modules()):
+    modules = list(unet.modules()) + list(atms.modules())
+    if isinstance(unet, EPix2VoxModel128):
+        init_weights(unet, generator)
+        modules = list(atms.modules())
+    for m in modules:
         if isinstance(m, nn.ConvTranspose3d):
             lecun_normal(m.weight, m.weight.shape[0] * m.weight[0, 0].numel())
         elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, Conv3x3x3)):
@@ -248,7 +271,11 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None):
     slices, grid_affines, out_nii, thetas = extract_view_slices(
         spec, atms, onehot, nii_affine, view_affines, aug_in, batch.get('thetas'))
     b_input, grid_affines_full = assemble_model_input(spec, slices, grid_affines, aug_re)
-    logits = unet(b_input, grid_affines_full)
+    if spec.model_type in EPIX2VOX_TYPES:
+        logits = epix2vox_interface_output(
+            unet(epix2vox_interface_input(b_input, spec.n_views)))
+    else:
+        logits = unet(b_input, grid_affines_full)
 
     target, y_hat = onehot, logits
     if spec.use_binarized_labels:

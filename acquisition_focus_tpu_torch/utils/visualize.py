@@ -158,3 +158,68 @@ def save_clinical_views_figure(image, label, volume_affine, view_affines, path,
         ax.axis('off')
     fig.savefig(path, bbox_inches='tight', dpi=100)
     plt.close(fig)
+
+
+def plot_training_curves(stages, png_path, title='Phantom end-to-end stage sweep'):
+    """Two stacked panels (loss / val Dice) of a run's metric streams, the stages
+    (``{stage: [metrics.jsonl records]}``) laid out on one global epoch axis with
+    boundary markers (the JAX package's ``scripts/train_phantom_e2e.py``
+    figure)."""
+    plt = _pyplot()
+    SURFACE, INK, INK2 = '#fcfcfb', '#0b0b0b', '#52514e'
+    C_TRAIN, C_VAL, C_DICE = '#2a78d6', '#eb6834', '#1baf7a'
+
+    order = sorted(stages, key=lambda s: (s == 'ref', s))  # opt_view0.. then ref
+    series = {'train_loss': [], 'val_loss': [], 'val_dice': []}
+    bounds, x0 = [], 0
+    for stage in order:
+        per_epoch = {}
+        for rec in stages[stage]:
+            if rec.get('step') is None:
+                continue
+            d = per_epoch.setdefault(rec['step'], {})
+            for key, name in (('losses/train_loss', 'train_loss'),
+                              ('losses/val_loss', 'val_loss'),
+                              ('scores/val_mean_oa_exclude_bg_dice', 'val_dice')):
+                if key in rec:
+                    d[name] = rec[key]
+        for i, step in enumerate(sorted(per_epoch)):
+            for name in series:
+                if name in per_epoch[step]:
+                    series[name].append((x0 + i, per_epoch[step][name]))
+        bounds.append((x0, x0 + len(per_epoch)))
+        x0 += len(per_epoch)
+
+    fig, (ax1, ax2) = plt.subplots(2, 1, figsize=(9, 5.6), sharex=True,
+                                   facecolor=SURFACE, gridspec_kw={'hspace': 0.12})
+    for ax in (ax1, ax2):
+        ax.set_facecolor(SURFACE)
+        for side in ('top', 'right'):
+            ax.spines[side].set_visible(False)
+        for side in ('left', 'bottom'):
+            ax.spines[side].set_color(INK2)
+        ax.grid(True, axis='y', color=INK2, alpha=0.15, linewidth=0.6)
+        ax.tick_params(colors=INK2, labelsize=8)
+        for lo, _ in bounds:
+            ax.axvline(lo, color=INK2, alpha=0.3, linewidth=0.8)
+    for (lo, hi), name in zip(bounds, order):
+        ax1.text((lo + hi) / 2, 1.02, name, transform=ax1.get_xaxis_transform(),
+                 ha='center', fontsize=8, color=INK2)
+
+    def plot(ax, name, color, label):
+        if series[name]:
+            xs, ys = zip(*series[name])
+            ax.plot(xs, ys, color=color, linewidth=2, label=label)
+
+    plot(ax1, 'train_loss', C_TRAIN, 'train loss')
+    plot(ax1, 'val_loss', C_VAL, 'val loss')
+    ax1.set_ylabel('DC+CE loss', fontsize=9, color=INK)
+    ax1.legend(frameon=False, fontsize=8, labelcolor=INK, loc='upper right')
+    plot(ax2, 'val_dice', C_DICE, 'val Dice (mean, excl. bg)')
+    ax2.set_ylabel('Dice', fontsize=9, color=INK)
+    ax2.set_ylim(0, 1)
+    ax2.set_xlabel('epoch (stage-sweep global)', fontsize=9, color=INK)
+    ax2.legend(frameon=False, fontsize=8, labelcolor=INK, loc='upper left')
+    fig.suptitle(title, fontsize=10, color=INK, y=0.99)
+    fig.savefig(png_path, dpi=150, bbox_inches='tight')
+    plt.close(fig)

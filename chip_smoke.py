@@ -12,8 +12,9 @@
    main path launches them (three views into the decoder's concat buffer, its
    cotangent read in place; also into a NaN-filled buffer), and at level 0 on
    unrounded affines against the plain version in the kernel's coordinate
-   arithmetic, K2 (and, as a reference
-   only, ``F.grid_sample`` on a grid made beforehand), K3 forward, K3 as the
+   arithmetic, K2 at the input of each path that launches it (the hybrid-unet
+   sweep's and the (E)Pix2Vox sweep's; and, as a reference only,
+   ``F.grid_sample`` on a grid made beforehand), K3 forward, K3 as the
    conv's input gradient, and K4 (the conv's weight gradient).
 3. The training step: the default configuration's step
    (``spec_from_config(DEFAULTS, 6, 3)``: hybrid U-Net at reference widths, 3 views,
@@ -39,11 +40,19 @@
    wrote (sweep state, ``metrics.jsonl``); then it times the runner's calls apart
    once: a locnet and a cached-theta step, the heavy metrics, a checkpoint load
    and save.
-6. A small float32 configuration on the GPU held against the same forward,
+6. The (E)Pix2Vox sweep through the CLI on the same files: a meta config like
+   ``config_dict_id21.json`` (hybrid-EPix2Vox, p2CH + p4CH, binarized) at batch 1
+   x accum 4, 2 epochs per stage, opt_view0, opt_view1 and ref, read back as in 5;
+   K2, the one kernel on that path, must launch. Then (E)Pix2Vox steps at that
+   shape, timed with cuDNN's TF32 on and off, and one hybrid-Pix2Vox step; and an
+   EPix2VoxModel128 forward on the GPU (float32, TF32 off) against the CPU's.
+7. A small float32 configuration on the GPU held against the same forward,
    ``theta_pass`` and ``eval_step`` on the CPU, where every wrapper takes its plain
    version.
-7. The last line is {"ok": true, "device": {...}}; the line before it lists the
-   kernels as JSON: launches during the CLI run and per training step of each mode
+8. The last line is {"ok": true, "device": {...}}; the line before it lists the
+   kernels as JSON: launches during the CLI run (``launches``; per path in
+   ``launches_by_path``: the hybrid-unet sweep and the (E)Pix2Vox sweep) and per
+   training step of each mode
    (``launches_per_step``), the largest error against the plain version, the bf16
    kernel and plain times summed over the main path's shapes (K1: three views per
    launch; ``one_view_*``: the one-view launches), the least time the card
@@ -179,8 +188,10 @@ class Checker:
 
 
 def check_volume_resample(chk, rng):
-    """K2 at the prescan resample: (2, 6, 128^3) label volume, 6 affines (3 views
-    x 2 samples), 128^3 out."""
+    """K2 at the prescan resample of each path that launches it: the hybrid-unet
+    sweep's (2, 6, 128^3) label volume with 6 affines (3 views x 2 samples), and
+    the (E)Pix2Vox sweep's (1, 2, 128^3) binarized volume with 2 affines (2 views
+    x 1 sample; 2 channels, which the kernel pads to 8); 128^3 out."""
     import torch.nn.functional as F
     from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
         volume_resample_cuda)
@@ -220,6 +231,18 @@ def check_volume_resample(chk, rng):
             n_vox = got.shape[0] * math.prod(out)
             chk.add_bound('volume_resample', vol.numel() * 2 + got.numel() * 2,
                           n_vox * (30 + 15 * got.shape[1]), F32_FLOP_S)
+        del vol, got, ref
+    log("K2 volume_resample, the (E)Pix2Vox sweep's input: (1, 2, 128^3) -> (2, 2, 128^3)")
+    theta = rotations(np.random.default_rng(1), 2, 0.1)    # its own draws: the
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):   # rest keep theirs
+        vol = torch.rand((1, 2) + out, device='cuda').to(dtype)
+        got = volume_resample_cuda(vol, theta, out)
+        ref = grid_sample(vol, theta, out)
+        name = str(dtype).split('.')[-1]
+        chk.compare('volume_resample', f'{name} out (E)Pix2Vox B1 C2 x2', got, ref, tol)
+        chk.timed('volume_resample', f'{name} (E)Pix2Vox B1 C2 x2',
+                  lambda: volume_resample_cuda(vol, theta, out),
+                  lambda: grid_sample(vol, theta, out), 10)
         del vol, got, ref
 
 
@@ -563,10 +586,13 @@ def phantom_batch(spec, device):
 def build_step(spec, device, seed=0):
     from acquisition_focus_tpu_torch.engine import train
     from acquisition_focus_tpu_torch.engine.optimizers import (
-        make_reconstruction_optimizer, make_transform_optimizer)
+        make_epix2vox_optimizer, make_reconstruction_optimizer, make_transform_optimizer)
     unet, atms = train.make_models(spec, device)
     train.init_params(unet, atms, torch.Generator().manual_seed(seed))
-    recon = make_reconstruction_optimizer(unet.parameters(), 1e-3, updates_per_epoch=10)
+    if spec.model_type in train.EPIX2VOX_TYPES:
+        recon = make_epix2vox_optimizer(unet, updates_per_epoch=10)
+    else:
+        recon = make_reconstruction_optimizer(unet.parameters(), 1e-3, updates_per_epoch=10)
     trans = make_transform_optimizer(atms.parameters(), 1e-3, epochs=80,
                                      updates_per_epoch=10)
     return unet, atms, recon, trans
@@ -747,59 +773,23 @@ def run_build(tmp):
     return data
 
 
-def run_sweep(tmp, data):
-    """The stage sweep through the CLI, at full width: ``main.main`` with a meta
-    config (DEFAULTS with epochs 2, 'full', theta_refresh_every 2, the built
-    phantom dataset, fold 0, cache off) builds the cases from the NIfTI files on
-    the card and runs opt_view0..2 and ref, 2 epochs each (epoch 0 trains the
-    locnet, epoch 1 runs from cached thetas and computes the heavy metrics on the
-    device), 8 training, 4 validation and 2 test cases at 128^3, with the build's
-    p2CH view planes. Per stage it reads what the run writes: the sweep state
-    (saves, the transform checkpoint each opt stage loaded) and ``metrics.jsonl``
-    (epoch seconds, scores)."""
-    from acquisition_focus_tpu_torch import main as cli
+def check_sweep(state_path, runs_dir, stages):
+    """Read back what a CLI sweep wrote: the sweep state lists ``stages`` in
+    order, each stage's ``metrics.jsonl`` has finite losses and its own best
+    checkpoint, each opt stage after the first loaded the previous stage's save as
+    its transform checkpoint, and its frozen views' ATMs are bit-equal to that
+    save while its trained view moved. Returns (completed, keys, epoch seconds)."""
     from acquisition_focus_tpu_torch.engine.checkpoint import load_checkpoint
-    from acquisition_focus_tpu_torch.engine.runner import load_config
-    from acquisition_focus_tpu_torch.ops.kernels import _lib
-
-    state_path = tmp / 'sweep_state.json'
-    meta = tmp / 'meta.json'
-    meta.write_text(json.dumps(dict(
-        epochs=2, use_pallas_conv3d='full', theta_refresh_every=2, save_every='best',
-        do_output=True, sweep_state_path=str(state_path), log_dir=str(tmp / 'runs'),
-        mdl_save_prefix=str(tmp / 'models'), dataset=['synthetic', str(data)],
-        fold_override=0, use_caching=False)))
-    config = load_config(None, meta)
-    log(f"sweep: python -m acquisition_focus_tpu_torch.main --meta_config_path {meta.name}: "
-        f"DEFAULTS with epochs 2, use_pallas_conv3d 'full', theta_refresh_every 2, "
-        f"save_every 'best', fold 0, cache off; {config['base_views']} views, "
-        f"{config['hires_fov_vox']} @ {config['hires_fov_mm']} mm, batch "
-        f"{config['batch_size']} x accum {config['num_grad_accum_steps']}, "
-        f"{config['compute_dtype']}")
-    log(f"  free disk under the run directory: {shutil.disk_usage(tmp).free} B")
-
-    torch.cuda.synchronize()
-    _lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    cli.main(['--meta_config_path', str(meta), '--base_dir', str(tmp)])
-    torch.cuda.synchronize()
-    sweep_s = time.perf_counter() - t0
-    launches = dict(_lib.LAUNCHES)
-    log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched in the sweep: {missing}")
-
     completed = json.loads(state_path.read_text())['completed']
     keys = list(completed)
-    if [k.split('/')[-1] for k in keys] != ['opt_view0', 'opt_view1', 'opt_view2', 'ref']:
+    if [k.split('/')[-1] for k in keys] != stages:
         raise AssertionError(f"sweep state lists the stages {keys}")
     epochs_total = 0.0
     for i, key in enumerate(keys):
         rec = completed[key]
         run_name = rec['run_name']
         recs = [json.loads(line) for line in
-                (tmp / 'runs' / run_name / 'metrics.jsonl').read_text().splitlines()]
+                (runs_dir / run_name / 'metrics.jsonl').read_text().splitlines()]
 
         def last(name):
             vals = [r[name] for r in recs if name in r]
@@ -837,6 +827,53 @@ def run_sweep(tmp, data):
         if changed or not moved:
             raise AssertionError(f"{key}: frozen ATM tensors changed {changed[:3]}, "
                                  f"trained view moved {len(moved)}")
+    return completed, keys, epochs_total
+
+
+def run_sweep(tmp, data):
+    """The stage sweep through the CLI, at full width: ``main.main`` with a meta
+    config (DEFAULTS with epochs 2, 'full', theta_refresh_every 2, the built
+    phantom dataset, fold 0, cache off) builds the cases from the NIfTI files on
+    the card and runs opt_view0..2 and ref, 2 epochs each (epoch 0 trains the
+    locnet, epoch 1 runs from cached thetas and computes the heavy metrics on the
+    device), 8 training, 4 validation and 2 test cases at 128^3, with the build's
+    p2CH view planes. Per stage it reads what the run writes: the sweep state
+    (saves, the transform checkpoint each opt stage loaded) and ``metrics.jsonl``
+    (epoch seconds, scores)."""
+    from acquisition_focus_tpu_torch import main as cli
+    from acquisition_focus_tpu_torch.engine.runner import load_config
+    from acquisition_focus_tpu_torch.ops.kernels import _lib
+
+    state_path = tmp / 'sweep_state.json'
+    meta = tmp / 'meta.json'
+    meta.write_text(json.dumps(dict(
+        epochs=2, use_pallas_conv3d='full', theta_refresh_every=2, save_every='best',
+        do_output=True, sweep_state_path=str(state_path), log_dir=str(tmp / 'runs'),
+        mdl_save_prefix=str(tmp / 'models'), dataset=['synthetic', str(data)],
+        fold_override=0, use_caching=False)))
+    config = load_config(None, meta)
+    log(f"sweep: python -m acquisition_focus_tpu_torch.main --meta_config_path {meta.name}: "
+        f"DEFAULTS with epochs 2, use_pallas_conv3d 'full', theta_refresh_every 2, "
+        f"save_every 'best', fold 0, cache off; {config['base_views']} views, "
+        f"{config['hires_fov_vox']} @ {config['hires_fov_mm']} mm, batch "
+        f"{config['batch_size']} x accum {config['num_grad_accum_steps']}, "
+        f"{config['compute_dtype']}")
+    log(f"  free disk under the run directory: {shutil.disk_usage(tmp).free} B")
+
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(['--meta_config_path', str(meta), '--base_dir', str(tmp)])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the sweep: {missing}")
+
+    completed, keys, epochs_total = check_sweep(
+        state_path, tmp / 'runs', ['opt_view0', 'opt_view1', 'opt_view2', 'ref'])
     log(f"  epochs {epochs_total:.3f} s of the CLI run's {sweep_s:.3f} s; the rest is "
         f"the dataset build, the stages' model builds, checkpoint loads and saves")
     torch.cuda.empty_cache()
@@ -884,6 +921,147 @@ def time_runner_calls(tmp, config, save_path):
     for what, fn in calls:
         log(f"  {what}: {host_s(fn):.4f} s")
     del unet, atms, recon, trans, batch, ck
+    torch.cuda.empty_cache()
+
+
+EPIX_EPOCHS = 2             # epochs per stage of the (E)Pix2Vox sweep
+
+
+def run_epix2vox_sweep(tmp, data):
+    """The (E)Pix2Vox stage sweep through the CLI: ``main.main`` with a meta config
+    like ``meta_configs/meta_configs_MMWHS/config_dict_id21.json`` without its
+    stage override (hybrid-EPix2Vox, views p2CH and p4CH, binarized labels), at
+    batch 1 x accum 4, 2 epochs per stage, fold 0, cache off, on the phantom files
+    of the build phase: opt_view0, opt_view1 and ref. The model computes in
+    float32 with PyTorch's default TF32 for cuDNN convolutions. K2 (the prescan
+    resample of the opt stages) is the one kernel on this path and must launch."""
+    from acquisition_focus_tpu_torch import main as cli
+    from acquisition_focus_tpu_torch.ops.kernels import _lib
+
+    state_path = tmp / 'epix_sweep_state.json'
+    meta = tmp / 'epix_meta.json'
+    meta.write_text(json.dumps(dict(
+        model_type='hybrid-EPix2Vox', base_views=['p2CH', 'p4CH'],
+        use_binarized_labels=True, batch_size=1, num_grad_accum_steps=4,
+        epochs=EPIX_EPOCHS, save_every='best', do_output=True,
+        sweep_state_path=str(state_path), log_dir=str(tmp / 'epix_runs'),
+        mdl_save_prefix=str(tmp / 'epix_models'), dataset=['synthetic', str(data)],
+        fold_override=0, use_caching=False)))
+    log(f"(E)Pix2Vox sweep: python -m acquisition_focus_tpu_torch.main --meta_config_path "
+        f"{meta.name}: hybrid-EPix2Vox, p2CH + p4CH, binarized, batch 1 x accum 4, "
+        f"{EPIX_EPOCHS} epochs per stage, fold 0, cache off, TF32 on")
+    torch.cuda.synchronize()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(['--meta_config_path', str(meta), '--base_dir', str(tmp)])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    sweep_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
+    if launches['volume_resample'] <= 0:
+        raise AssertionError("K2 (volume_resample) not launched in the (E)Pix2Vox sweep")
+    _, _, epochs_total = check_sweep(state_path, tmp / 'epix_runs',
+                                     ['opt_view0', 'opt_view1', 'ref'])
+    log(f"  epochs {epochs_total:.3f} s of the CLI run's {sweep_s:.3f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def epix2vox_batch(spec, device):
+    """(accum, 1, ...) batch of binarized phantom labels at the hires grid (seeds
+    0..accum-1), their NIfTI affines, identity view affines."""
+    from acquisition_focus_tpu_torch.data import make_heart_phantom
+    S = tuple(spec.hires_fov_vox)
+    spacing = tuple(m / v for m, v in zip(spec.hires_fov_mm, spec.hires_fov_vox))
+    accum = spec.num_grad_accum_steps
+    samples = [make_heart_phantom(shape=S, seed=i, spacing=spacing) for i in range(accum)]
+    label = np.stack([s[0] > 0 for s in samples]).astype(np.int64).reshape((accum, 1) + S)
+    nii = np.stack([s[2] for s in samples]).reshape(accum, 1, 4, 4)
+    views = np.broadcast_to(np.eye(4), (accum, spec.n_views, 1, 4, 4))
+    return {'label': torch.tensor(label, device=device),
+            'nii_affine': torch.tensor(nii, dtype=torch.float32, device=device),
+            'view_affines': torch.tensor(np.array(views), dtype=torch.float32,
+                                         device=device)}
+
+
+def run_epix2vox_steps():
+    """(E)Pix2Vox training steps at the sweep's shape (2 views, binarized, batch 1
+    x accum 4, 128^3, the opt-all locnets of DEFAULTS): hybrid-EPix2Vox, 1 warm-up
+    and 3 timed steps with cuDNN's TF32 on (PyTorch's default, which the port
+    keeps), then 1 + 3 with it off, peak memory over each; then one hybrid-Pix2Vox
+    step. Losses and parameters must stay finite."""
+    from acquisition_focus_tpu_torch.engine import train
+    from acquisition_focus_tpu_torch.engine.runner import DEFAULTS, spec_from_config
+    result = {}
+    for model_type in ('hybrid-EPix2Vox', 'hybrid-Pix2Vox'):
+        spec = spec_from_config(dict(DEFAULTS, model_type=model_type,
+                                     base_views=['p2CH', 'p4CH'], use_binarized_labels=True,
+                                     batch_size=1, num_grad_accum_steps=4), 2, 2)
+        unet, atms, recon, trans = build_step(spec, 'cuda')
+        batch = epix2vox_batch(spec, 'cuda')
+        gen = torch.Generator().manual_seed(0)
+        n_params = sum(p.numel() for p in unet.parameters())
+        modes = (True, False) if model_type == 'hybrid-EPix2Vox' else (True,)
+        steps = STEPS if model_type == 'hybrid-EPix2Vox' else 1
+        for tf32 in modes:
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for step in range(steps):
+                t0 = time.perf_counter()
+                loss = float(train.train_step(spec, unet, atms, recon, trans, batch,
+                                              gen)['loss'])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if not np.isfinite(loss):
+                    raise AssertionError(f"{model_type} step {step}: loss {loss}")
+            peak = torch.cuda.max_memory_allocated()
+            s_step = sum(times[1:]) / len(times[1:]) if steps > 1 else times[0]
+            log(f"  [{model_type}, TF32 {'on' if tf32 else 'off'}] {n_params} params; "
+                f"s/step {s_step:.4f} ({'mean of 3 after 1 warm-up' if steps > 1 else 'one step, with its warm-up'}); "
+                f"losses end {loss!r}; max_memory_allocated {peak} B "
+                f"({peak / 2**30:.2f} GiB)")
+            result[model_type, tf32] = {'s_step': s_step, 'peak': peak}
+        torch.backends.cudnn.allow_tf32 = False
+        for p in unet.parameters():
+            if not torch.isfinite(p).all():
+                raise AssertionError(f"{model_type}: non-finite parameter after the steps")
+        del unet, atms, recon, trans, batch
+        torch.cuda.empty_cache()
+    return result
+
+
+def check_epix2vox_reference():
+    """An EPix2VoxModel128 forward (V 2, B 1, Kaiming weights from seed 0) on the
+    GPU in float32 with TF32 off against the same forward on the CPU, on views made
+    by the interface adapter from phantom slices: the occupancy within 2e-4 (max
+    abs; it lies in [0, 1]; measured 2.3e-5 on an NVIDIA H100 at 700 W). The sums
+    of the 78M-parameter model run in another order on the GPU."""
+    from acquisition_focus_tpu_torch.data import make_heart_phantom
+    from acquisition_focus_tpu_torch.models.epix2vox import (
+        EPix2VoxModel128, epix2vox_interface_input, init_weights)
+    label = make_heart_phantom((128,) * 3, seed=0)[0] > 0
+    planes = np.stack([np.eye(2)[label[64].astype(int)], np.eye(2)[label[:, 64].astype(int)]])
+    b_input = torch.tensor(planes.transpose(0, 3, 1, 2).reshape(1, 4, 128, 128),
+                           dtype=torch.float32)
+    model = EPix2VoxModel128(2, use_epix2vox=True)
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        ref = model(epix2vox_interface_input(b_input, 2))
+        got = model.cuda()(epix2vox_interface_input(b_input.cuda(), 2)).cpu()
+    err = (got - ref).abs().max().item()
+    log(f"(E)Pix2Vox forward, GPU (float32, TF32 off) vs CPU: occupancy {tuple(got.shape)} "
+        f"in [{ref.min().item():.4f}, {ref.max().item():.4f}], max abs diff {err:.3e} "
+        f"(tol 2e-4)  {'ok' if err <= 2e-4 else 'FAIL'}")
+    if not err <= 2e-4:
+        raise AssertionError(f"(E)Pix2Vox forward: GPU vs CPU max abs diff {err:.3e}")
+    del model
     torch.cuda.empty_cache()
 
 
@@ -973,6 +1151,9 @@ def main():
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         data = run_build(Path(tmp))
         launches = run_sweep(Path(tmp), data)
+        epix_launches = run_epix2vox_sweep(Path(tmp), data)
+    epix = run_epix2vox_steps()
+    check_epix2vox_reference()
     check_small_reference()
 
     sources = {
@@ -992,6 +1173,8 @@ def main():
     }
     kernels = [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
                 'launches': launches[name],
+                'launches_by_path': {'sweep': launches[name],
+                                     'epix2vox_sweep': epix_launches[name]},
                 'launches_per_step': {m: r['launches'][name] / STEPS
                                       for m, r in (('fwd', fwd), ('full', full))},
                 'max_abs_err': chk.rows[name]['max_abs_err'],
@@ -1004,6 +1187,9 @@ def main():
                 **({f'one_view_{k}': chk.rows[ONE_VIEW[name]][k]
                     for k in ('ms', 'plain_ms', 'bound_ms')} if name in ONE_VIEW else {})}
                for name, (src, rep) in sources.items()]
+    log("(E)Pix2Vox s/step at batch 1 x accum 4, 2 views, 128^3: " + "; ".join(
+        f"{mt} TF32 {'on' if tf32 else 'off'} {r['s_step']:.4f} s, peak {r['peak']} B"
+        for (mt, tf32), r in epix.items()))
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

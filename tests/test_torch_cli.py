@@ -1,8 +1,8 @@
 """The port's CLI (``acquisition_focus_tpu_torch/main.py``) and run summaries
 (``utils/results.py``) on the CPU: fold construction against the JAX package's,
 ``main()`` end to end on a phantom dataset written to disk, the result tables, and
-every shipped meta config either building its stages' models or refusing an
-unported option by name.
+every shipped meta config either building its stages' models (the (E)Pix2Vox
+configs included) or refusing an unported option by name.
 """
 
 import glob
@@ -168,8 +168,6 @@ def _configs():
 
 def _unported(config):
     """The option a shipped config needs that the port does not have, or None."""
-    if config.get('model_type', 'hybrid-unet') != 'hybrid-unet':
-        return 'model_type'
     if config.get('clinical_view_affine_type') == 'from-segmented':
         return 'from-segmented'
     return None
@@ -200,9 +198,9 @@ def _build_specs(meta_path):
 
 @pytest.mark.parametrize('meta_path', _configs(), ids=lambda p: '/'.join(Path(p).parts[-2:]))
 def test_every_config_builds_or_names_what_is_missing(meta_path):
-    """A config builds its port StageSpecs and models, or raises
-    ``NotImplementedError`` naming the option it needs: (E)Pix2Vox or the
-    from-segmented path."""
+    """A config builds its port StageSpecs and models (the (E)Pix2Vox configs
+    their ``EPix2VoxModel128``), or raises ``NotImplementedError`` naming the
+    option it needs: the from-segmented path."""
     need = _unported(json.loads(Path(meta_path).read_text()))
     if need is None:
         assert _build_specs(meta_path) >= 1
@@ -212,8 +210,59 @@ def test_every_config_builds_or_names_what_is_missing(meta_path):
 
 
 def test_32_of_54_shipped_configs_build():
+    """44 of the 54 shipped configs build since (E)Pix2Vox is ported (32 before:
+    the 12 (E)Pix2Vox configs are among the 44); the other 10 need from-segmented."""
     configs = _configs()
-    needs = [_unported(json.loads(Path(p).read_text())) for p in configs]
+    metas = [json.loads(Path(p).read_text()) for p in configs]
+    needs = [_unported(m) for m in metas]
     assert len(configs) == 54
-    assert needs.count(None) == 32
-    assert needs.count('model_type') == 12 and needs.count('from-segmented') == 10
+    assert needs.count(None) == 44 and needs.count('from-segmented') == 10
+    epix = [m for m, n in zip(metas, needs)
+            if m.get('model_type') in ('hybrid-EPix2Vox', 'hybrid-Pix2Vox')]
+    assert len(epix) == 12 and all(m.get('use_binarized_labels') for m in epix)
+
+
+# ---------------------------------------------------------------- the run script
+
+def test_phantom_run_script_writes_the_jax_scripts_summary(tmp_path, monkeypatch):
+    """``scripts/train_phantom_e2e.py::run(..., device='cpu')``: one epoch of the
+    single-stage protocol at 32^3 with skinny widths on a phantom dataset written
+    to disk. It collects the metric stream and the last affines, and its
+    ``summary.json`` holds what the JAX script's ``collect_artifacts`` writes from
+    the same run directory, value for value, plus the port's extra keys."""
+    from scripts.train_phantom_e2e import collect_artifacts as jcollect
+    from acquisition_focus_tpu_torch.scripts import train_phantom_e2e
+    monkeypatch.chdir(tmp_path)                 # the dataset cache goes to ./.cache
+    write_phantom_dataset(tmp_path / 'data', n_cases=6, shape=(32,) * 3)
+    summary = train_phantom_e2e.run(
+        epochs=1, spat=32, fov_mult=4.5, data_dir=tmp_path / 'data',
+        out_dir=tmp_path / 'out', run_dir=tmp_path / 'e2e', base_features=[2, 4, 4, 8],
+        locnet_width=2, single_stage=True, compute_dtype='float32', batch_size=1,
+        accum=1, device='cpu')
+    out = tmp_path / 'out'
+    assert json.loads((out / 'summary.json').read_text()) == summary
+    assert (out / 'metrics_stage-main.jsonl').exists() and (out / 'affines_final.pkl').exists()
+    main = summary['stages']['main']
+    assert main['epochs'] == 1 and set(main['final_test_dice_per_class']) == set(TAGS)
+    assert np.isfinite(main['final_train_loss']) and summary['peak_memory_bytes'] is None
+
+    run_root = tmp_path / 'e2e' / 'out_run'
+    jcollect(run_root, tmp_path / 'jax_out', summary['wall_s'])
+    jsum = json.loads((tmp_path / 'jax_out' / 'summary.json').read_text())
+    assert jsum['wall_s'] == summary['wall_s']
+    for stage, rec in jsum['stages'].items():
+        assert {k: summary['stages'][stage][k] for k in rec} == rec
+
+
+@pytest.mark.parametrize('no_tf32', [False, True])
+def test_phantom_run_script_tf32_flag(monkeypatch, no_tf32):
+    """``--no_tf32`` turns cuDNN's TF32 off before the run; without it the script
+    leaves PyTorch's default. The run itself is stubbed: only the flag is held."""
+    from acquisition_focus_tpu_torch.scripts import train_phantom_e2e
+    seen = {}
+    monkeypatch.setattr(torch.backends.cudnn, 'allow_tf32', True)
+    monkeypatch.setattr(train_phantom_e2e, 'run', lambda **kw: seen.update(
+        kw, tf32=torch.backends.cudnn.allow_tf32))
+    train_phantom_e2e.main(['--single_stage', '--device', 'cpu']
+                           + (['--no_tf32'] if no_tf32 else []))
+    assert seen['tf32'] is not no_tf32 and seen['single_stage'] and seen['device'] == 'cpu'

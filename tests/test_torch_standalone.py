@@ -77,6 +77,15 @@ out = train.train_step(spec, unet, atms,
                        make_reconstruction_optimizer(unet.parameters(), 1e-3, 1),
                        make_transform_optimizer(atms.parameters(), 1e-3, 2, 1), batch)
 assert np.isfinite(float(out['loss']))
+from acquisition_focus_tpu_torch.engine.optimizers import make_epix2vox_optimizer
+from acquisition_focus_tpu_torch.models.epix2vox import epix2vox_interface_input
+import dataclasses
+epix, _ = train.make_models(dataclasses.replace(spec, model_type='hybrid-EPix2Vox'), 'cpu')
+train.init_params(epix, atms, torch.Generator().manual_seed(0))
+make_epix2vox_optimizer(epix, 1)
+with torch.no_grad():
+    occ = epix(epix2vox_interface_input(torch.rand(1, 4, 16, 16), 2))
+assert occ.shape == (1, 128, 128, 128) and torch.isfinite(occ).all()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('acquisition_focus_tpu', 'jax', 'flax', 'optax'))
 assert not bad, bad
@@ -204,8 +213,9 @@ BUILD = dict(TINY, hires_fov_mm=[48.0] * 3, hires_fov_vox=[32] * 3,
 
 @pytest.mark.parametrize('entry', ['make_models', 'run_dl', 'stage_sweep_run',
                                    'BaseDataset', 'load_or_build', 'main',
-                                   'preprocess_mmwhs', 'preprocess_mrxcat'])
-def test_entry_points_default_to_the_card(no_cuda, tmp_path, entry):
+                                   'preprocess_mmwhs', 'preprocess_mrxcat',
+                                   'make_models_epix2vox', 'train_phantom_e2e'])
+def test_entry_points_default_to_the_card(no_cuda, tmp_path, monkeypatch, entry):
     """Without CUDA each entry point raises unless the caller passes
     ``device='cpu'`` (the preprocess CLIs: ``--device cpu``); with it, the CPU
     run goes through (no epoch here)."""
@@ -217,13 +227,15 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, entry):
     build_cfg = tconfig.load_config(overrides=dict(
         BUILD, dataset=['synthetic', str(data)], log_dir=str(tmp_path / 'runs'),
         mdl_save_prefix=str(tmp_path / 'models')))
-    if entry in ('BaseDataset', 'load_or_build', 'main'):
+    if entry in ('BaseDataset', 'load_or_build', 'main', 'train_phantom_e2e'):
         write_phantom_dataset(data, n_cases=3, shape=(32,) * 3)
-    if entry == 'make_models':
+    if entry in ('make_models', 'make_models_epix2vox'):
         spec = ttrain.StageSpec(n_views=2, num_classes=6, n_active_views=2,
                                 view_optimization_mode='opt-all', use_affine_theta=True,
                                 hires_fov_vox=(16,) * 3, prescan_fov_vox=(32,) * 3,
-                                base_features=(2, 4, 4, 8), locnet_width=2)
+                                base_features=(2, 4, 4, 8), locnet_width=2,
+                                model_type='hybrid-EPix2Vox'
+                                if entry == 'make_models_epix2vox' else 'hybrid-unet')
 
         def call(**kw):
             unet, _ = ttrain.make_models(spec, **kw)
@@ -242,6 +254,15 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, entry):
         def call(**kw):
             return sorted(tcache.load_or_build(MMWHSDataset, data, build_cfg, 'test',
                                                **kw).cases)
+    elif entry == 'train_phantom_e2e':
+        from acquisition_focus_tpu_torch.scripts import train_phantom_e2e
+        monkeypatch.chdir(tmp_path)             # the dataset cache goes to ./.cache
+
+        def call(**kw):
+            summary = train_phantom_e2e.run(
+                epochs=0, spat=32, data_dir=data, out_dir=tmp_path / 'out',
+                run_dir=tmp_path / 'e2e', single_stage=True, **kw)
+            return {stage: s['epochs'] for stage, s in summary['stages'].items()}
     elif entry == 'main':
         meta = tmp_path / 'meta.json'
         meta.write_text(json.dumps(dict(build_cfg, num_folds=0, sweep_type=None)))
@@ -262,7 +283,8 @@ def test_entry_points_default_to_the_card(no_cuda, tmp_path, entry):
         def call(device=None):
             argv = ['--raw_dir', str(raw), '--out_dir', str(tmp_path / 'out')]
             return module.main(argv + (['--device', device] if device else []))
-    want = {'make_models': torch.device('cpu'),
+    want = {'make_models': torch.device('cpu'), 'make_models_epix2vox': torch.device('cpu'),
+            'train_phantom_e2e': {'main': 0},
             'BaseDataset': ['mr_0002', 'mr_0003'],
             'load_or_build': ['mr_0002', 'mr_0003']}.get(entry)
     with pytest.raises(RuntimeError, match="device='cpu'"):
