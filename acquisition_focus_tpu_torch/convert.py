@@ -7,7 +7,7 @@ Inputs are the flax param trees as nested dicts of numpy arrays
   and, for the grouped 2D encoder convs, HWIO -> OIHW;
 * ``nn.ConvTranspose`` kernels (2, 2, 2, Ci, Co) are flipped on all three spatial
   axes, then transposed to (Ci, Co, 2, 2, 2): flax's transposed conv equals torch's
-  ``ConvTranspose3d`` only with the kernel flipped;
+  ``ConvTranspose3d`` only with the kernel flipped (the segmenter's 2D ones alike);
 * ``Dense`` kernels (in, out) -> (out, in);
 * GroupNorm scale/bias -> ``InstanceNorm*d(affine=True)`` weight/bias, and the
   EPix2Vox batch norms' scale/bias -> ``models.epix2vox.BatchNorm`` weight/bias;
@@ -31,7 +31,9 @@ def _conv(kernel):
 
 
 def _conv_transpose(kernel):
-    return np.transpose(np.flip(kernel, (0, 1, 2)), (3, 4, 0, 1, 2))
+    nd = kernel.ndim - 2
+    spatial = tuple(range(nd))
+    return np.transpose(np.flip(kernel, spatial), (nd, nd + 1) + spatial)
 
 
 def _layer(out, prefix, p, kernel_fn=_conv):
@@ -115,6 +117,17 @@ def epix2vox_state_dict(flax_params):
                 walk(f'{prefix}{name}.', sub)
 
     walk('', flax_params['params'])
+    return _to_torch(out)
+
+
+def segunet_state_dict(flax_params):
+    """SegUnet2D params (the segmenter checkpoint's 'params') ->
+    ``models.segmentation.unet2d.SegUnet2D`` state_dict: flax's layer names are
+    the port's module names."""
+    p = flax_params['params'] if 'params' in flax_params else flax_params
+    out = {}
+    for name, leaf in p.items():
+        _layer(out, name, leaf, _conv_transpose if name.endswith('_up') else _conv)
     return _to_torch(out)
 
 

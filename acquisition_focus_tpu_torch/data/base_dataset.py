@@ -11,9 +11,15 @@ images), as the JAX package's build does. Cases leave the build as numpy arrays:
 'label' (D, H, W) int, 'image' (D, H, W) float, 'nii_affine' (4, 4) and
 'input_view_affines' (V, 4, 4), the layout :meth:`BaseDataset.make_batch` collates.
 
+Under ``clinical_view_affine_type='from-segmented'`` the frozen segmenter
+(``segment_fn``, wired by ``set_segment_fn``) segments the prescan image; that
+segmentation gives the prescan view planes, its hires interpolation the centroid
+base, and both the reoriented volumes and the input view affines; a prescan whose
+Dice or HD95 against the GT is worse than ``min_prescan_dice`` /
+``max_prescan_hd95_mm`` fails the build.
+
 Split layout, id parsing and fold construction follow the reference's
-``metadata/data_split.json`` format. Not ported: the from-segmented build (a
-frozen segmenter's prescan segmentation), which raises ``NotImplementedError``.
+``metadata/data_split.json`` format.
 """
 
 import json
@@ -37,18 +43,24 @@ _CLASS_DICT = {tag: idx for idx, tag in enumerate(
 def _prescan_quality(seg, gt, nii_affine, num_classes):
     """Dice / HD95 of the (hires-interpolated) segmented prescan against the hires
     GT: the build-time quality gate of from-segmented runs. HD95 in mm via the
-    voxel-diagonal norm of the comparison grid's affine."""
-    from acquisition_focus_tpu_torch.engine.metrics import hausdorff_per_class
-    seg, gt = np.asarray(seg), np.asarray(gt)
+    voxel-diagonal norm of the comparison grid's affine. ``seg``, ``gt``: arrays or
+    tensors; the surface distances run on ``seg``'s device through the runner's
+    device EDT, their roots and percentiles in float64 (the JAX package's scipy
+    numbers)."""
+    from acquisition_focus_tpu_torch.engine.metrics import hausdorff_per_class_device
+    zooms = np.sqrt((np.asarray(nii_affine, np.float32)[:3, :3] ** 2).sum(0))
+    seg = torch.as_tensor(seg)
+    gt = torch.as_tensor(gt, device=seg.device)
+    hd95 = hausdorff_per_class_device(seg[None].long(), gt[None].long(), num_classes,
+                                      torch.float64)[0, :, 1].cpu().numpy()
+    hd95 = hd95 * float(np.linalg.norm(zooms))
+    seg, gt = seg.cpu().numpy(), gt.cpu().numpy()
     dice = np.full(num_classes, np.nan)
     for c in range(1, num_classes):
         p, t = seg == c, gt == c
         denom = p.sum() + t.sum()
         if denom > 0:
             dice[c] = 2.0 * np.logical_and(p, t).sum() / denom
-    zooms = np.sqrt((np.asarray(nii_affine, np.float32)[:3, :3] ** 2).sum(0))
-    hd95 = hausdorff_per_class(seg[None], gt[None], num_classes,
-                               percentile=95)[0] * float(np.linalg.norm(zooms))
     return {
         'dice': dice, 'hd95': hd95,
         'dice_mean': float(np.nanmean(dice[1:])),
@@ -106,8 +118,8 @@ class BaseDataset:
         return file_id
 
     def set_segment_fn(self, fold_idx):
-        """Frozen-segmenter hook for from-segmented modes (subclasses refuse a
-        configured segmenter: it is not ported)."""
+        """Frozen-segmenter hook for from-segmented modes; wired by subclasses when
+        a segmenter checkpoint is configured."""
         self.segment_fn = None
 
     # -- id bookkeeping ----------------------------------------------------
@@ -153,10 +165,11 @@ class BaseDataset:
     def _load(self):
         from acquisition_focus_tpu_torch.engine.train import resolve_device
         cfg = self.config
-        if cfg.get('clinical_view_affine_type') == 'from-segmented':
-            raise NotImplementedError(
-                "not ported yet: clinical_view_affine_type='from-segmented' (the "
-                "segmenter's prescan segmentation in the dataset build)")
+        from_segmented = cfg.get('clinical_view_affine_type') == 'from-segmented'
+        if from_segmented and self.segment_fn is None:
+            raise RuntimeError(
+                "clinical_view_affine_type='from-segmented' needs a segmenter: configure "
+                "segment_model_path (set_segment_fn was not wired)")
         dev = resolve_device(self.device)
         hires_mm = torch.tensor(cfg['hires_fov_mm'], dtype=torch.float32, device=dev)
         hires_vox = tuple(cfg['hires_fov_vox'])
@@ -212,26 +225,75 @@ class BaseDataset:
             prescan_lbl, case['prescan_nii_affine'] = resample(
                 hires_lbl, hires_nii, prescan_mm, prescan_vox, True)
             case['prescan_gt'] = prescan_lbl.cpu().numpy().astype(np.int32)
-            case['prescan_label'] = case['prescan_gt']
-            prescan_views = get_clinical_cardiac_view_affines(
-                prescan_lbl, case['prescan_nii_affine'], _CLASS_DICT,
-                num_sa_slices=num_sa, return_unrolled=True)
-            prescan_views['centroids'] = view_affines['centroids']
+            if from_segmented:
+                case['prescan_label'], prescan_views, case['prescan_quality'] = \
+                    self._segmented_prescan(fid, hires_img, hires_lbl, hires_nii,
+                                            case['prescan_nii_affine'], ref_heart,
+                                            resample)
+            else:
+                case['prescan_label'] = case['prescan_gt']
+                prescan_views = get_clinical_cardiac_view_affines(
+                    prescan_lbl, case['prescan_nii_affine'], _CLASS_DICT,
+                    num_sa_slices=num_sa, return_unrolled=True)
+                prescan_views['centroids'] = view_affines['centroids']
             case['prescan_view_affines'] = prescan_views
             case['gt_view_affines'] = view_affines
             case['nifti_affine'] = hires_nii
 
             # the centroid-reoriented training volume and the per-view input grid
-            # affines, from the GT view affines (the only source ported)
-            base = view_affines['centroids']
+            # affines: the chosen source (GT or segmented prescan) gives both the
+            # canonical base and the view planes
+            chosen_views = prescan_views if from_segmented else view_affines
+            base = chosen_views['centroids']
             r_lbl, r_nii = resample(case_label, hires_nii, hires_mm, hires_vox, True, base)
             r_img, _ = resample(hires_img, hires_nii, hires_mm, hires_vox, False, base)
             case['label'] = r_lbl.cpu().numpy().astype(np.int32)
             case['image'] = r_img.cpu().numpy().astype(np.float32)
             case['nii_affine'] = r_nii.astype(np.float32)
-            case['input_view_affines'] = self._input_view_affines(view_affines)
+            case['input_view_affines'] = self._input_view_affines(chosen_views)
 
             self.cases[self.extract_3d_id(fid)] = case
+
+    def _segmented_prescan(self, fid, hires_img, hires_lbl, hires_nii, prescan_nii,
+                           ref_heart, resample):
+        """The from-segmented prescan of one case: the prescan image resampled from
+        the hires image and segmented by ``segment_fn``; its view planes; the
+        centroid base registered on the segmentation interpolated back to the hires
+        grid (which keeps registration and volume in one normalized grid space);
+        and its Dice / HD95 against the hires GT, printed and gated. Returns
+        (segmentation (numpy int32), view affine dict, quality dict)."""
+        cfg = self.config
+        hires_mm = torch.tensor(cfg['hires_fov_mm'], dtype=torch.float32,
+                                device=hires_img.device)
+        prescan_mm = torch.tensor(cfg['prescan_fov_mm'], dtype=torch.float32,
+                                  device=hires_img.device)
+        prescan_img, _ = resample(hires_img, hires_nii, prescan_mm,
+                                  tuple(cfg['prescan_fov_vox']), False)
+        seg = torch.as_tensor(self.segment_fn(prescan_img, prescan_nii),
+                              device=hires_img.device).int()
+        views = get_clinical_cardiac_view_affines(
+            seg, prescan_nii, _CLASS_DICT, num_sa_slices=cfg.get('num_sa_slices', 15),
+            return_unrolled=True)
+        seg_hires, _ = resample(seg, prescan_nii, hires_mm, tuple(cfg['hires_fov_vox']),
+                                True)
+        views['centroids'] = np.asarray(
+            register_centroids(ref_heart, seg_hires, dof=6, seed=cfg.get('seed', 0)),
+            np.float64)
+        q = _prescan_quality(seg_hires, hires_lbl, hires_nii, len(self.label_tags))
+        print(f"  {fid} prescan dice={q['dice_mean']:.3f} hd95={q['hd95_mean']:.2f}mm")
+        # a prescan segmentation this wrong would poison every view plane built
+        # from it: fail the build instead
+        min_dice = cfg.get('min_prescan_dice', 0.5)
+        max_hd95 = cfg.get('max_prescan_hd95_mm', 12.0)
+        if q['dice_mean'] < min_dice or (np.isfinite(q['hd95_mean'])
+                                         and q['hd95_mean'] > max_hd95):
+            raise RuntimeError(
+                f"{fid}: segmented prescan quality below the build gate (dice "
+                f"{q['dice_mean']:.3f} < {min_dice} or hd95 {q['hd95_mean']:.2f}mm > "
+                f"{max_hd95}mm): train the segmenter longer (acquisition_focus_tpu_torch."
+                "scripts.train_segmenter) or lower min_prescan_dice/max_prescan_hd95_mm "
+                "explicitly")
+        return seg.cpu().numpy().astype(np.int32), views, q
 
     def _input_view_affines(self, chosen_views):
         """(V, 4, 4) input grid affines for the configured base views:

@@ -7,13 +7,6 @@ from pathlib import Path
 from acquisition_focus_tpu_torch.data.base_dataset import BaseDataset
 
 
-def refuse_segmenter(config):
-    """The from-segmented segmenter is not ported: a configured one raises."""
-    if config.get('segment_model_path'):
-        raise NotImplementedError(
-            "not ported yet: segment_model_path (the from-segmented segmenter)")
-
-
 class MMWHSDataset(BaseDataset):
     @staticmethod
     def get_file_id(file_path):
@@ -24,5 +17,12 @@ class MMWHSDataset(BaseDataset):
         return mmwhs_id, ('label' in type_str)
 
     def set_segment_fn(self, fold_idx):
-        refuse_segmenter(self.config)
-        self.segment_fn = None
+        from acquisition_focus_tpu_torch.engine.segmenter import make_segment_fn
+        # extra_permute defaults True: the reference's MMWHS axis workaround for
+        # its external nnU-Net checkpoints. In-framework segmenters
+        # (scripts/train_segmenter.py) share this package's axis convention and
+        # need no permute: set segment_extra_permute=false.
+        self.segment_fn = make_segment_fn(
+            self.config.get('segment_model_path'), fold_idx, num_classes=6,
+            extra_permute=bool(self.config.get('segment_extra_permute', True)),
+            device=self.device)

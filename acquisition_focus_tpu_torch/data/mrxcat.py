@@ -6,7 +6,6 @@ import re
 from pathlib import Path
 
 from acquisition_focus_tpu_torch.data.base_dataset import BaseDataset
-from acquisition_focus_tpu_torch.data.mmwhs import refuse_segmenter
 
 
 class MRXCATDataset(BaseDataset):
@@ -22,8 +21,10 @@ class MRXCATDataset(BaseDataset):
         return file_id[:8]
 
     def set_segment_fn(self, fold_idx):
-        refuse_segmenter(self.config)
-        self.segment_fn = None
+        from acquisition_focus_tpu_torch.engine.segmenter import make_segment_fn
+        self.segment_fn = make_segment_fn(
+            self.config.get('segment_model_path'), fold_idx, num_classes=6,
+            extra_permute=False, device=self.device)
 
 
 def get_dataset_class(name):

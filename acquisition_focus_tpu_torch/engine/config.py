@@ -100,7 +100,7 @@ DEFAULTS = DotDict(
     seed=0,
     log_dir="data/runs",
     debug_nans=False,                # jax_debug_nans anomaly detection
-    segment_model_path=None,         # orbax ckpt for from-segmented modes
+    segment_model_path=None,         # torch.save ckpt for from-segmented modes
     min_prescan_dice=0.5,            # from-segmented build gates: abort when the
     max_prescan_hd95_mm=12.0,        # segmented prescan vs GT is worse than this
                                      # (reference oracle lands at ~0.805 Dice;

@@ -143,15 +143,18 @@ def edt_squared_device(mask):
 
 
 @torch.no_grad()
-def hausdorff_per_class_device(pred_labels, target_labels, num_classes):
+def hausdorff_per_class_device(pred_labels, target_labels, num_classes,
+                               dtype=torch.float32):
     """(B, C, 2) [HD, HD95] in voxels over dense label maps (B, D, H, W), on their
     device, with the host path's semantics: class 0 is 0, NaN when either mask is
     empty, percentiles with linear interpolation (numpy's default). The
     percentile runs over the surface voxels' distances only (``torch.quantile``
     of the selected values; ``jnp.nanpercentile`` over the NaN-masked volume
-    gives the same number)."""
+    gives the same number). The squared distances are exact integers; their
+    square roots and percentiles are taken in ``dtype`` (float64: the host path's
+    numbers)."""
     B = pred_labels.shape[0]
-    out = torch.zeros((B, num_classes, 2), dtype=torch.float32, device=pred_labels.device)
+    out = torch.zeros((B, num_classes, 2), dtype=dtype, device=pred_labels.device)
     for b in range(B):
         for c in range(1, num_classes):
             pm, tm = pred_labels[b] == c, target_labels[b] == c
@@ -160,8 +163,8 @@ def hausdorff_per_class_device(pred_labels, target_labels, num_classes):
                 continue
             sp = pm & ~_erode6(pm)
             st = tm & ~_erode6(tm)
-            d_pt = edt_squared_device(st)[sp].sqrt()
-            d_tp = edt_squared_device(sp)[st].sqrt()
+            d_pt = edt_squared_device(st)[sp].to(dtype).sqrt()
+            d_tp = edt_squared_device(sp)[st].to(dtype).sqrt()
             out[b, c, 0] = torch.maximum(d_pt.max(), d_tp.max())
             out[b, c, 1] = torch.maximum(torch.quantile(d_pt, 0.95),
                                          torch.quantile(d_tp, 0.95))

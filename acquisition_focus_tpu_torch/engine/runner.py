@@ -11,8 +11,10 @@ Random streams: weights come from ``torch.Generator().manual_seed(seed)``; each
 training step's augmentation from a generator keyed by (seed, global_idx * 10000
 + step), each evaluation batch's from (seed + 7, global_idx * 10000 + i), and the
 shuffle from an epoch-keyed numpy generator, so a resumed run replays the
-uninterrupted one exactly. Not ported: the device mesh (``mesh_shape``) and the
-from-segmented path (its dataset build and segmenter); both raise
+uninterrupted one exactly. From-segmented runs load the frozen segmenter
+(``segment_model_path``, a ``torch.save`` checkpoint) for validation and test; a
+missing checkpoint warns and the run goes on without it, as the JAX runner does.
+Not ported: the device mesh (``mesh_shape``), which raises
 ``NotImplementedError``.
 """
 
@@ -84,18 +86,9 @@ def spec_from_config(config, num_classes, n_active_views, phase='train'):
 
 
 def check_ported_config(config):
-    """Raise for run options whose code is not ported: a device mesh, the
-    from-segmented dataset build and the from-segmented segmenter."""
-    missing = []
+    """Raise for run options whose code is not ported: a device mesh."""
     if config.get('mesh_shape') is not None:
-        missing.append(f"mesh_shape={config['mesh_shape']!r}")
-    if config.get('clinical_view_affine_type') == 'from-segmented':
-        missing.append("clinical_view_affine_type='from-segmented'")
-    if config.get('segment_model_path') and \
-            config.get('label_slice_type') == 'from-segmented':
-        missing.append("label_slice_type='from-segmented' with a segmenter")
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+        raise NotImplementedError(f"not ported yet: mesh_shape={config['mesh_shape']!r}")
 
 
 def n_active_views_for(config):
@@ -111,12 +104,27 @@ def seeded_generator(seed, index):
     return torch.Generator().manual_seed(int(state[0]))
 
 
-def _to_device(batch, device):
-    """numpy batch -> tensors on ``device`` (labels as int64, the rest float32)."""
+def _to_device(batch, device, image=False):
+    """numpy batch -> tensors on ``device`` (labels as int64, the rest float32); the
+    image volume only with ``image`` (the segmenter's input)."""
     return {k: torch.as_tensor(np.asarray(v),
                                dtype=torch.int64 if k == 'label' else torch.float32,
                                device=device)
-            for k, v in batch.items() if k != 'image'}
+            for k, v in batch.items() if image or k != 'image'}
+
+
+def _load_segmenter(config, num_classes, device):
+    """The frozen segmenter of from-segmented runs (label slices replaced by the
+    segmented image slices in validation and test), or None: without a configured
+    checkpoint, and, with a warning, for a path where none exists."""
+    from acquisition_focus_tpu_torch.engine.segmenter import load_segmenter
+    path = config.get('segment_model_path')
+    if not path or config.get('label_slice_type') != 'from-segmented':
+        return None
+    segmenter = load_segmenter(path, num_classes, device)
+    if segmenter is None:
+        print(f"warning: from-segmented configured but no checkpoint at {path}")
+    return segmenter
 
 
 def _heavy_metric_epoch(config, epx):
@@ -211,6 +219,7 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
         return np.ascontiguousarray(th.transpose(0, 2, 1, 3, 4))  # (accum, A, B, 4, 4)
 
     out_dir = Path(base_dir) / 'data/output' / run_name
+    segmenter = _load_segmenter(config, num_classes, device)
 
     # stop_at_epoch pauses a run early without changing the schedules (functions
     # of the full config['epochs']); a pause checkpoint is force-saved at the stop
@@ -257,14 +266,15 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
 
             # ---- val ----
             val_loss = _eval_phase('val', specs['val'], unet, atms, training_dataset,
-                                   val_idxs, config, logger, global_idx, epx, device)
+                                   val_idxs, config, logger, global_idx, epx, device,
+                                   segmenter=segmenter)
         else:
             train_loss, val_loss = float('nan'), float('nan')
 
         # ---- test ----
         test_out_dir = config.get('test_only_and_output_to') or None
         _eval_phase('test', specs['test'], unet, atms, test_dataset, None, config, logger,
-                    global_idx, epx, device, out_dir=test_out_dir)
+                    global_idx, epx, device, out_dir=test_out_dir, segmenter=segmenter)
 
         epoch_s = time.time() - epoch_t0
         perf = {'perf/epoch_s': epoch_s}
@@ -356,7 +366,7 @@ def heavy_scores(scores, spec, pred, label, nii_affine, eval_tags):
 
 
 def _eval_phase(phase, spec, unet, atms, dataset, idxs, config, logger, global_idx, epx,
-                device, out_dir=None):
+                device, out_dir=None, segmenter=None):
     if dataset is None or len(dataset) == 0:
         return float('nan')
     unet.eval()
@@ -374,8 +384,9 @@ def _eval_phase(phase, spec, unet, atms, dataset, idxs, config, logger, global_i
 
     for i, (sel, batch) in enumerate(dataset.iterate_eval_batches(idxs, batch_size)):
         gen = seeded_generator(config.get('seed', 0) + 7, global_idx * 10000 + i)
-        batch_t = _to_device(batch, device)
-        out = eval_step(spec, unet, atms, batch_t, gen, with_aug=with_aug)
+        batch_t = _to_device(batch, device, image=segmenter is not None)
+        out = eval_step(spec, unet, atms, batch_t, gen, with_aug=with_aug,
+                        segmenter=segmenter)
         losses.append(float(out['loss']))
         accumulate_label_scores(scores, 'dice', out['dice'].cpu().numpy(), eval_tags)
 

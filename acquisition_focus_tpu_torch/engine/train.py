@@ -14,8 +14,10 @@ localization net); ``eval_step`` is the forward-only step of validation and test
 Under ``model_type`` 'hybrid-EPix2Vox' / 'hybrid-Pix2Vox' the reconstruction model
 is ``EPix2VoxModel128``: the slices enter through its interface adapters (the
 views' foreground at 224^2, occupancy out as a background/foreground stack).
-From-segmented slicing and slice alignment to the principal axis are not ported
-yet.
+Under ``rotate_slice_to_min_principle`` each slice is turned to its content's
+min-inertia axis; under ``label_slice_type='from-segmented'`` an evaluation step
+given the frozen segmenter replaces the label slices by the segmented image
+slices (:func:`segment_slices`).
 """
 
 import dataclasses
@@ -29,6 +31,7 @@ import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.engine.losses import binarize_onehot, dice_ce_loss
 from acquisition_focus_tpu_torch.engine.metrics import metrics_from_logits
+from acquisition_focus_tpu_torch.engine.segmenter import flip_tta_logits
 from acquisition_focus_tpu_torch.models.atm import (
     AffineTransformModule, apply_stacked_atms)
 from acquisition_focus_tpu_torch.models.epix2vox import (
@@ -36,7 +39,7 @@ from acquisition_focus_tpu_torch.models.epix2vox import (
 from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3, HybridUnet
 from acquisition_focus_tpu_torch.ops.affine import compose
 from acquisition_focus_tpu_torch.ops.resample import (
-    nifti_grid_sample, nifti_grid_sample_nodiff, resize_trilinear)
+    image_resize, nifti_grid_sample, nifti_grid_sample_nodiff, resize_trilinear)
 from acquisition_focus_tpu_torch.ops.rotations import random_affine_batch
 
 
@@ -102,7 +105,6 @@ def _check_ported(spec):
         # an unknown model type: the JAX package builds the hybrid U-Net for it
         (f"model_type={spec.model_type!r}",
          spec.model_type not in ('hybrid-unet',) + EPIX2VOX_TYPES),
-        ("rotate_slice_to_min_principle", spec.rotate_slice_to_min_principle),
         ("atm_remat", spec.atm_remat),
         ("unet_remat", spec.unet_remat),
         (f"decoder_save_names={spec.decoder_save_names!r}",
@@ -162,7 +164,7 @@ def init_params(unet, atms, generator):
         init_weights(unet, generator)
         modules = list(atms.modules())
     for m in modules:
-        if isinstance(m, nn.ConvTranspose3d):
+        if isinstance(m, (nn.ConvTranspose2d, nn.ConvTranspose3d)):
             lecun_normal(m.weight, m.weight.shape[0] * m.weight[0, 0].numel())
         elif isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear, Conv3x3x3)):
             lecun_normal(m.weight, m.weight[0].numel())
@@ -191,7 +193,7 @@ def compute_thetas(spec: StageSpec, atms, soft_label, nii_affine, view_affines):
 
 
 def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affines,
-                        augment_generator=None, cached_thetas=None):
+                        augment_generator=None, cached_thetas=None, image=None):
     """Per-view model-input slices along learned view planes.
 
     Args:
@@ -203,9 +205,12 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
       cached_thetas: (A, B, 4, 4) thetas snapshotted by :func:`theta_pass`; under
         ``theta_source='cached'`` they replace the prescan and localization nets
         (the cache was taken from the unaugmented view orientation).
+      image: optional (B, D, H, W) intensity volume, sliced along the same planes
+        without gradient.
 
     Returns: (slices (A, B, C, Sh, Sw), grid_affines (A, B, 4, 4),
-              out_nii_affines (A, B, 4, 4), thetas (A, B, 4, 4)).
+              out_nii_affines (A, B, 4, 4), thetas (A, B, 4, 4),
+              image slices (A, B, 1, sh, sw) at ``slice_fov_vox`` or None).
     """
     A = spec.n_active_views
     B, C = soft_label.shape[:2]
@@ -227,6 +232,16 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
     slices, grid_affines, out_nii = nifti_grid_sample(
         soft_label, nii_affine, spec.slice_fov_mm, spec.slice_fov_vox,
         pre_grid_sample_affine=_fold(pre))
+    if spec.rotate_slice_to_min_principle:
+        # turn each slice so that its content's min-inertia axis lies in-plane
+        # along the principal direction; no gradient through the alignment
+        from acquisition_focus_tpu_torch.geometry.moments import (
+            slice_min_principal_align_affines)
+        with torch.no_grad():
+            align = slice_min_principal_align_affines(slices.argmax(dim=1))
+        slices, _, out_nii = nifti_grid_sample(slices, out_nii,
+                                               pre_grid_sample_affine=align)
+        grid_affines = compose(grid_affines, align)
     Sh, Sw, Sd = spec.slice_fov_vox
     slices = slices.reshape(A, B, C, Sh, Sw, Sd)[..., 0]
     Hh, Hw = spec.hires_fov_vox[:2]
@@ -234,7 +249,16 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
         # upsample to the hires in-plane resolution
         up = resize_trilinear(_fold(slices)[..., None], (Hh, Hw, 1))[..., 0]
         slices = up.reshape(A, B, C, Hh, Hw)
-    return slices, grid_affines.reshape(A, B, 4, 4), out_nii.reshape(A, B, 4, 4), thetas
+
+    image_slices = None
+    if image is not None:
+        with torch.no_grad():
+            img, _, _ = nifti_grid_sample(image[:, None], nii_affine, spec.slice_fov_mm,
+                                          spec.slice_fov_vox,
+                                          pre_grid_sample_affine=_fold(pre))
+        image_slices = img.reshape(A, B, 1, Sh, Sw)
+    return (slices, grid_affines.reshape(A, B, 4, 4), out_nii.reshape(A, B, 4, 4), thetas,
+            image_slices)
 
 
 def assemble_model_input(spec: StageSpec, slices, grid_affines, augment_generator=None):
@@ -254,13 +278,49 @@ def assemble_model_input(spec: StageSpec, slices, grid_affines, augment_generato
     return torch.cat(list(slices), dim=1), grid_affines
 
 
-def forward(spec: StageSpec, unet, atms, batch, augment_generator=None):
+@torch.no_grad()
+def segment_slices(spec: StageSpec, segmenter, image_slices, train_spacing_mm=1.5):
+    """Label slices from the frozen segmenter on the image slices, for
+    from-segmented evaluation.
+
+    Each slice is respaced to the segmenter's ``train_spacing_mm`` grid (the factor
+    from the static slice FOV, as the JAX package's jitted step has it; exact
+    without learned zoom), z-normalized on its own, segmented as one tile with the
+    mean of the 2^2 in-plane flips, argmax'd, one-hot encoded, and resized to the
+    hires in-plane grid ('linear', as ``jax.image.resize``).
+
+    Args: image_slices (A, B, 1, sh, sw) at ``slice_fov_vox``.
+    Returns: (A, B, num_classes, Hh, Hw) float32 one-hot slices.
+    """
+    A, B = image_slices.shape[:2]
+    sh, sw = spec.slice_fov_vox[:2]
+    x = image_slices.reshape(A * B, 1, sh, sw).float()
+    nh = max(1, int(round(sh * (spec.slice_fov_mm[0] / sh) / train_spacing_mm)))
+    nw = max(1, int(round(sw * (spec.slice_fov_mm[1] / sw) / train_spacing_mm)))
+    if (nh, nw) != (sh, sw):
+        x = image_resize(x, (A * B, 1, nh, nw), 'linear')
+    var, mu = torch.var_mean(x, dim=(2, 3), keepdim=True, correction=0)
+    x = (x - mu) / torch.clamp(torch.sqrt(var), min=1e-8)
+
+    logits = flip_tta_logits(segmenter, x)
+    onehot = F.one_hot(logits.argmax(dim=1), spec.num_classes).movedim(-1, 1).float()
+    Hh, Hw = spec.hires_fov_vox[:2]
+    if (nh, nw) != (Hh, Hw):
+        onehot = image_resize(onehot, (A * B, spec.num_classes, Hh, Hw), 'linear')
+    return onehot.reshape(A, B, spec.num_classes, Hh, Hw)
+
+
+def forward(spec: StageSpec, unet, atms, batch, augment_generator=None, train=True,
+            segmenter=None):
     """Volumes -> view slices -> reconstruction -> loss.
 
     ``batch``: 'label' (B, D, H, W) int, 'nii_affine' (B, 4, 4),
-    'view_affines' (V, B, 4, 4), and under ``theta_source='cached'`` 'thetas'
-    (A, B, 4, 4). Augmentation draws come from
-    ``augment_generator`` (None: no augmentation)."""
+    'view_affines' (V, B, 4, 4), under ``theta_source='cached'`` 'thetas'
+    (A, B, 4, 4), and for the segmenter 'image' (B, D, H, W). Augmentation draws
+    come from ``augment_generator`` (None: no augmentation). Under
+    ``label_slice_type='from-segmented'``, when not ``train`` and given a
+    ``segmenter``, the model sees the segmented image slices in place of the label
+    slices."""
     label = batch['label']
     nii_affine = batch['nii_affine']
     view_affines = batch['view_affines'][:spec.n_active_views]
@@ -268,8 +328,13 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None):
 
     aug_in = augment_generator if spec.augment_input else None
     aug_re = augment_generator if spec.augment_recon else None
-    slices, grid_affines, out_nii, thetas = extract_view_slices(
-        spec, atms, onehot, nii_affine, view_affines, aug_in, batch.get('thetas'))
+    use_segmenter = (spec.label_slice_type == 'from-segmented' and not train
+                     and segmenter is not None)
+    slices, grid_affines, out_nii, thetas, image_slices = extract_view_slices(
+        spec, atms, onehot, nii_affine, view_affines, aug_in, batch.get('thetas'),
+        image=batch['image'] if use_segmenter else None)
+    if use_segmenter:
+        slices = segment_slices(spec, segmenter, image_slices)
     b_input, grid_affines_full = assemble_model_input(spec, slices, grid_affines, aug_re)
     if spec.model_type in EPIX2VOX_TYPES:
         logits = epix2vox_interface_output(
@@ -347,11 +412,14 @@ def theta_pass(spec: StageSpec, atms, batch):
 
 
 @torch.no_grad()
-def eval_step(spec: StageSpec, unet, atms, batch, generator=None, with_aug=False):
+def eval_step(spec: StageSpec, unet, atms, batch, generator=None, with_aug=False,
+              segmenter=None):
     """Forward-only step: loss, per-class dice, dense predictions, and the view
     geometry (thetas, slice affines) and model input for logging and output.
-    Augmentation draws come from ``generator`` when ``with_aug``."""
-    loss, aux = forward(spec, unet, atms, batch, generator if with_aug else None)
+    Augmentation draws come from ``generator`` when ``with_aug``; ``segmenter``: the
+    frozen segmenter of from-segmented runs (see :func:`forward`)."""
+    loss, aux = forward(spec, unet, atms, batch, generator if with_aug else None,
+                        train=False, segmenter=segmenter)
     num_eval = 2 if spec.use_binarized_labels else spec.num_classes
     pred, dice = metrics_from_logits(aux['logits'], aux['target_onehot'], num_eval)
     return {'loss': loss, 'dice': dice, 'pred': pred, 'thetas': aux['thetas'],

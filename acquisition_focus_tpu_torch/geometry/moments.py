@@ -68,3 +68,47 @@ def principal_axes(inertia):
     a = (a + a.T) / np.float32(2.0)             # jnp.linalg.eigh symmetrizes its input
     _, vecs = scipy.linalg.eigh(a, lower=True, driver='evd')
     return vecs[:, 0], vecs[:, 1], vecs[:, 2]
+
+
+def slice_min_principal_align_affines(slice_labels):
+    """Grid-space affines that turn each slice so that the min-inertia axis of its
+    non-background content becomes the in-plane principal direction.
+
+    Args:
+      slice_labels: (N, Sh, Sw, 1) integer labels (one-voxel-thick slices).
+    Returns: (N, 4, 4) float32 grid affines on the labels' device.
+
+    The masked moments run batched on the labels' device; the N 3x3 eigen-solves
+    run on the host through :func:`principal_axes` (LAPACK's ``syevd``, whose
+    eigenvector signs the JAX package's CPU ``eigh`` also gives; no sign rule is
+    added). A flipped min axis turns the aligned slice by 180 degrees."""
+    dev = slice_labels.device
+    mask = (slice_labels != 0).float()
+    shape = mask.shape[1:]
+    grids = [g[None] for g in _coord_grids(shape, dev)]
+    dims = (1, 2, 3)
+    n = torch.clamp(mask.sum(dims), min=1.0)
+    center = torch.stack([(g * mask).sum(dims) / n for g in grids], dim=-1)   # (N, 3)
+    centered = [g - center[:, i, None, None, None] for i, g in enumerate(grids)]
+    m2 = torch.stack([torch.stack([(a * b * mask).sum(dims) for b in centered], dim=-1)
+                      for a in centered], dim=-2)                             # (N, 3, 3)
+    eye = torch.eye(3, device=dev)
+    inertia = m2.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] * eye - m2
+    center = center.clone()
+    center[:, -1] = 0.5
+
+    min_axes = np.stack([principal_axes(i)[0] for i in inertia.cpu().numpy()])
+    main = torch.as_tensor(min_axes, device=dev)
+    main = main / torch.linalg.norm(main, dim=-1, keepdim=True)
+    second = torch.linalg.cross(main, eye[2].expand_as(main), dim=-1)
+    two = second / torch.clamp(torch.linalg.norm(second, dim=-1, keepdim=True), min=1e-8)
+    normal = torch.linalg.cross(main, two, dim=-1)
+    normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True), min=1e-8)
+    two = torch.linalg.cross(normal, main, dim=-1)
+    rows = torch.stack([two, main, normal], dim=1)        # the pixel frame's rows
+    out = torch.eye(4, device=dev).repeat(len(rows), 1, 1)
+    # pixel -> grid affine: axes reversed (x -> W), centre to [-1, 1]
+    out[:, :3, :3] = rows.flip(1, 2).transpose(1, 2)
+    size = torch.tensor(shape, dtype=torch.float32, device=dev)
+    out[:, :3, 3] = (2.0 * center / size - 1.0).flip(-1)
+    return out

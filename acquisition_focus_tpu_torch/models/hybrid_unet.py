@@ -37,8 +37,14 @@ def _compute_dtype(x):
 
 
 def _norm_act(norm, x):
-    """InstanceNorm(affine) in float32 + LeakyReLU 0.01."""
-    return leaky_relu(norm(x.float()))
+    """InstanceNorm(affine) in float32 + LeakyReLU 0.01. Over a single voxel (the
+    deepest level of six at 32^3) the normalized value is 0 and the output the
+    bias, as flax's GroupNorm gives it; torch's instance norm refuses that size."""
+    x = x.float()
+    if x[0, 0].numel() == 1:
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return leaky_relu((x - x) * norm.weight.view(shape) + norm.bias.view(shape))
+    return leaky_relu(norm(x))
 
 
 def _same_pad_2d(x, stride):

@@ -361,3 +361,55 @@ def resize_trilinear(x, out_dhw):
     enlarges)."""
     return F.interpolate(x, size=tuple(int(s) for s in out_dhw), mode='trilinear',
                          align_corners=False)
+
+
+def _resize_weights(n_in, n_out, device):
+    """(n_in, n_out) float32 weights of ``jax.image.resize``'s 'linear' method on
+    one axis: half-pixel centers, the triangle kernel widened by the shrink factor
+    (antialiasing), each column normalized to sum 1, columns whose sample point
+    lies outside the input zeroed."""
+    inv_scale = n_in / n_out                    # 1 / scale, as a Python float
+    kernel_scale = max(inv_scale, 1.0)
+    f32 = torch.float32
+    sample = (torch.arange(n_out, dtype=f32, device=device) + 0.5) \
+        * torch.tensor(inv_scale, dtype=f32) - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=f32, device=device)[:, None]).abs() \
+        / torch.tensor(kernel_scale, dtype=f32)
+    w = torch.clamp(1.0 - x, min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(f32).eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def image_resize(x, shape, method):
+    """``jax.image.resize(x, shape, method)`` for 'linear' and 'nearest': every
+    axis whose size differs is resized, whatever its rank (2D and 3D images, with
+    or without batch and channel axes).
+
+    'linear' contracts each resized axis with the JAX package's weight matrix in
+    float32 (integer inputs are promoted): shrinking it antialiases, as JAX does,
+    where ``F.interpolate`` would not. 'nearest' takes source index
+    floor((i + 0.5) * n_in / n_out), computed in float32 as JAX computes it, and
+    keeps the dtype."""
+    shape = tuple(int(s) for s in shape)
+    if len(shape) != x.ndim:
+        raise ValueError(f"shape {shape} must have one entry per axis of {tuple(x.shape)}")
+    if method == 'nearest':
+        for d, (m, n) in enumerate(zip(x.shape, shape)):
+            if m != n:
+                idx = torch.floor((torch.arange(n, dtype=torch.float32, device=x.device)
+                                   + 0.5) * m / n).long()
+                x = x.index_select(d, idx)
+        return x
+    if method != 'linear':
+        raise ValueError(f"unknown resize method {method!r}: 'linear' or 'nearest'")
+    if not x.is_floating_point():
+        x = x.float()
+    for d, (m, n) in enumerate(zip(x.shape, shape)):
+        if m != n:
+            w = _resize_weights(m, n, x.device).to(x.dtype)
+            x = torch.tensordot(x.movedim(d, -1), w, dims=1).movedim(-1, d)
+    return x

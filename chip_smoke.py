@@ -13,9 +13,13 @@
    cotangent read in place; also into a NaN-filled buffer), and at level 0 on
    unrounded affines against the plain version in the kernel's coordinate
    arithmetic, K2 at the input of each path that launches it (the hybrid-unet
-   sweep's and the (E)Pix2Vox sweep's; and, as a reference only,
+   sweep's, the (E)Pix2Vox sweep's, and the from-segmented sweep's 32^3 prescan at
+   6 mm from the 128^3 volume, a shrink by 4 per axis; and, as a reference only,
    ``F.grid_sample`` on a grid made beforehand), K3 forward, K3 as the
-   conv's input gradient, and K4 (the conv's weight gradient).
+   conv's input gradient, and K4 (the conv's weight gradient). The from-segmented
+   sweep's own shapes are held too, in rows of their own: K1 with two views at the
+   six levels, and K3, K3 as dx and K4 at its full-resolution decoder convs
+   (64 -> 32 and 32 -> 32).
 3. The training step: the default configuration's step
    (``spec_from_config(DEFAULTS, 6, 3)``: hybrid U-Net at reference widths, 3 views,
    6 classes, 128^3 @ 192 mm, batch 2 x accum 2, bf16) on phantom labels, random
@@ -24,7 +28,7 @@
    microbatch), then the same 4 steps from the same weights, batch and
    generator seed with ``'full'`` (K3 also as the input gradient, K4 as the weight
    gradient). Step 0's loss must agree between the two.
-4. The dataset build: 14 phantom cases written as NIfTI files at 128^3, 1.5 mm,
+4. The dataset build: N_CASES (8) phantom cases written as NIfTI files at 128^3, 1.5 mm,
    built by ``load_or_build`` on the card (seconds per case); the 2 test cases
    built again on the CPU with the card's centroid affines injected: labels equal
    (at most ``BUILD_CASE_TOL`` of the voxels differ), view and input affines and
@@ -46,12 +50,26 @@
    K2, the one kernel on that path, must launch. Then (E)Pix2Vox steps at that
    shape, timed with cuDNN's TF32 on and off, and one hybrid-Pix2Vox step; and an
    EPix2VoxModel128 forward on the GPU (float32, TF32 off) against the CPU's.
-7. A small float32 configuration on the GPU held against the same forward,
+7. From-segmented, on the same files: the segmenter trained by
+   ``scripts/train_segmenter.py`` at full width (128^2, batch 8, ``--multires``,
+   SEG_STEPS steps; s/step and final loss); the from-segmented build of the 2 test
+   cases with ``config_dict_id13.json``'s 32^3 @ 192 mm prescan (per-case prescan
+   Dice and HD95, seconds per case; the build gate lowered explicitly, FS_GATE); a
+   CLI sweep like ``config_dict_id13.json`` (axial + coronal, opt_view0, opt_view1,
+   ref; 2 epochs per stage, ``'full'``), in which K1f, K1b, K2, K3 and K4 must all
+   launch; a float32 from-segmented ``eval_step`` at 32^2 slices
+   (``config_dict_id14.json``'s shape) and ``slice_min_principal_align_affines`` on
+   the GPU against the CPU.
+8. A small float32 configuration on the GPU held against the same forward,
    ``theta_pass`` and ``eval_step`` on the CPU, where every wrapper takes its plain
    version.
-8. The last line is {"ok": true, "device": {...}}; the line before it lists the
+9. The last line is {"ok": true, "device": {...}}; the line before it lists the
    kernels as JSON: launches during the CLI run (``launches``; per path in
-   ``launches_by_path``: the hybrid-unet sweep and the (E)Pix2Vox sweep) and per
+   ``launches_by_path``: the hybrid-unet sweep, the (E)Pix2Vox sweep and the
+   from-segmented sweep; K2's row also holds ``prescan32``, its check at the
+   from-segmented prescan shape, and the rows of K1, K3 and K4 ``from_segmented``,
+   their checks at that sweep's two-view shapes; ``max_abs_err`` is the largest
+   over all of a kernel's shapes) and per
    training step of each mode
    (``launches_per_step``), the largest error against the plain version, the bf16
    kernel and plain times summed over the main path's shapes (K1: three views per
@@ -148,7 +166,7 @@ class Checker:
         row['bound_by'] = by
         return ms
 
-    def compare(self, kernel, what, got, ref, tol, normalize=False):
+    def compare(self, kernel, what, got, ref, tol, normalize=False, row=None):
         got, ref = got.float(), ref.float()
         if got.shape != ref.shape:
             raise AssertionError(f"{kernel} {what}: shape {tuple(got.shape)} != "
@@ -163,7 +181,7 @@ class Checker:
         if bad:
             raise AssertionError(f"{kernel} {what}: error {err:.3e} (rel {rel:.3e}) "
                                  f"over tolerance {tol:g}")
-        row = self.rows.setdefault(kernel, {'max_abs_err': 0.0})
+        row = self.rows.setdefault(row or kernel, {'max_abs_err': 0.0})
         row['max_abs_err'] = max(row['max_abs_err'], err)
         return err
 
@@ -244,6 +262,41 @@ def check_volume_resample(chk, rng):
                   lambda: volume_resample_cuda(vol, theta, out),
                   lambda: grid_sample(vol, theta, out), 10)
         del vol, got, ref
+
+
+PRESCAN32 = 'volume_resample prescan 32^3'     # K2's row at the from-segmented shape
+
+
+def check_volume_resample_prescan32(chk, rng):
+    """K2 at the from-segmented sweep's prescan resample (``config_dict_id13.json``'s
+    32^3 prescan at 192 mm from the 128^3 hires volume at 1.5 mm: a shrink by 4 per
+    axis, 64 source voxels per output voxel, of which the trilinear gather reads
+    8): the (2, 6, 128^3) label volume, 4 affines (2 views x 2 samples), 32^3 out,
+    in bf16 (1e-2) and float32 (1e-4) against the plain version. Its times and
+    bound go to their own row. The bound counts the input at most once and at most
+    at the 8 corners of every output voxel (two output volumes per input volume:
+    a quarter of its voxels)."""
+    from acquisition_focus_tpu_torch.ops.kernels.volume_resample import (
+        volume_resample_cuda)
+    from acquisition_focus_tpu_torch.ops.resample import grid_sample
+    log("K2 volume_resample at the from-segmented prescan: (2, 6, 128^3) -> (4, 6, 32^3)")
+    out = (32, 32, 32)
+    theta = rotations(rng, 4, 0.1)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        vol = torch.rand((2, 6, 128, 128, 128), device='cuda').to(dtype)
+        got = volume_resample_cuda(vol, theta, out)
+        ref = grid_sample(vol, theta, out)
+        name = str(dtype).split('.')[-1]
+        chk.compare(PRESCAN32, f'{name} out', got, ref, tol)
+        chk.timed(PRESCAN32, name, lambda: volume_resample_cuda(vol, theta, out),
+                  lambda: grid_sample(vol, theta, out), 20, main=dtype == torch.bfloat16)
+        if dtype == torch.bfloat16:
+            n_vox = got.shape[0] * math.prod(out)
+            read = min(vol.numel(), 8 * n_vox * vol.shape[1])
+            chk.add_bound(PRESCAN32, read * 2 + got.numel() * 2,
+                          n_vox * (30 + 15 * got.shape[1]), F32_FLOP_S)
+        del vol, got, ref
+    torch.cuda.empty_cache()
 
 
 SKIP_LEVELS = ((128, 16), (64, 32), (32, 64), (16, 128), (8, 256), (4, 256))
@@ -347,23 +400,25 @@ def check_plane_resample(chk, rng):
             torch.cuda.empty_cache()
 
 
-def check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main):
+def check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main, V=3, suffix=''):
     """The main path's K1 launches at one level: ``skip_concat(y, slices, theta)``,
-    the decoder's concat of y (2, 3C, S^3) and the three views' re-embedded planes
-    (2, 3C, S, S), one K1f launch into the buffer and one K1b launch reading its
+    the decoder's concat of y (2, VC, S^3) and the V views' re-embedded planes
+    (2, VC, S, S), one K1f launch into the buffer and one K1b launch reading its
     cotangent in place, against the plain composition (``sample_slice_into_volume``
     per view, ``torch.cat``): the buffer and the gradients to y, the slices and
     theta (affines rounded as in check_plane_resample). Then K1f into a NaN-filled
-    buffer at channel 3C: no NaN may remain in the views' channels, and channels
-    [:3C] must stay NaN. The two launches are timed against their plain versions
-    into the same buffer; the bound counts the three views' output and planes
-    (K1f) and their band voxels (K1b)."""
+    buffer at channel VC: no NaN may remain in the views' channels, and channels
+    [:VC] must stay NaN. The two launches are timed against their plain versions
+    into the same buffer; the bound counts the V views' output and planes (K1f)
+    and their band voxels (K1b). Rows: the kernel's name + ``suffix``."""
     from acquisition_focus_tpu_torch.ops.kernels import affine_coefficients
     from acquisition_focus_tpu_torch.ops.kernels.plane_resample import (
         plane_resample_bwd, plane_resample_fwd, skip_concat)
     from acquisition_focus_tpu_torch.ops.resample import sample_slice_into_volume
-    V, co = 3, 3 * C
-    name = f"{str(dtype).split('.')[-1]} S{S} C{C} 3 views"
+    co = V * C
+    name = f"{str(dtype).split('.')[-1]} S{S} C{C} {V} views"
+    kf, kb = 'plane_resample_fwd', 'plane_resample_bwd'
+    rf, rb = kf + suffix, kb + suffix
     theta = rotations(rng, V * 2, 0.2, dyadic=True).reshape(V, 2, 4, 4)
     coefs = affine_coefficients(theta.reshape(-1, 4, 4), (S,) * 3, (S,) * 3)
     coefs = coefs.reshape(V, 2, 3, 4).contiguous()
@@ -383,8 +438,8 @@ def check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main):
     ref = grads(lambda a, s, t: torch.cat([a] + views(s, t), dim=1))
     for i, (what, tol) in enumerate((('out', tol_f), ('d_y', tol_f), ('d_slices', tol_b),
                                      ('d_theta', tol_b))):
-        chk.compare('plane_resample_fwd' if i == 0 else 'plane_resample_bwd',
-                    f'{name} {what}', got[i], ref[i], tol, True)
+        chk.compare(kf if i == 0 else kb, f'{name} {what}', got[i], ref[i], tol, True,
+                    rf if i == 0 else rb)
     buf = torch.full(g.shape, float('nan'), dtype=dtype, device='cuda')
     plane_resample_fwd(slices, coefs, S, buf, co)
     n_nan, kept = buf[:, co:].isnan().sum().item(), buf[:, :co].isnan().all().item()
@@ -393,8 +448,7 @@ def check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main):
     if n_nan or not kept:
         raise AssertionError(f"plane_resample_fwd {name}: {n_nan} voxels left unwritten, "
                              f"other channels untouched: {kept}")
-    chk.compare('plane_resample_fwd', f'{name} into NaNs', buf[:, co:], ref[0][:, co:],
-                tol_f, True)
+    chk.compare(kf, f'{name} into NaNs', buf[:, co:], ref[0][:, co:], tol_f, True, rf)
     del got, ref
 
     def plain_fwd():
@@ -402,23 +456,23 @@ def check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, iters, main):
             buf[:, co + v * C:co + (v + 1) * C] = vol
 
     with torch.no_grad():
-        chk.timed('plane_resample_fwd', name, lambda: plane_resample_fwd(slices, coefs, S, buf, co),
-                  plain_fwd, iters, main)
+        chk.timed(kf, name, lambda: plane_resample_fwd(slices, coefs, S, buf, co),
+                  plain_fwd, iters, main, row=rf)
     s, t = slices.clone().requires_grad_(), theta.clone().requires_grad_()
     out_graph = torch.cat([y] + views(s, t), dim=1)
-    chk.timed('plane_resample_bwd', name, lambda: plane_resample_bwd(slices, coefs, g, co),
+    chk.timed(kb, name, lambda: plane_resample_bwd(slices, coefs, g, co),
               lambda: torch.autograd.grad(out_graph, (s, t), g, retain_graph=True),
-              iters, main)
+              iters, main, row=rb)
     if main:
         el, n_vox = slices.element_size(), V * 2 * S ** 3
         band = sum(band_voxels(coefs[v], S) for v in range(V))
-        chk.add_bound('plane_resample_fwd', slices.numel() * el + n_vox * C * el,
-                      n_vox * (20 + 7 * C), F32_FLOP_S)
-        chk.add_bound('plane_resample_bwd', band * C * el + slices.numel() * (el + 4),
-                      band * (20 + 20 * C), F32_FLOP_S)
+        chk.add_bound(kf, slices.numel() * el + n_vox * C * el,
+                      n_vox * (20 + 7 * C), F32_FLOP_S, rf)
+        chk.add_bound(kb, band * C * el + slices.numel() * (el + 4),
+                      band * (20 + 20 * C), F32_FLOP_S, rb)
         dense_ms, _ = bound(n_vox * C * el + 2 * slices.numel() * el,
                             n_vox * (20 + 20 * C), F32_FLOP_S)
-        row = chk.rows['plane_resample_bwd']
+        row = chk.rows[rb]
         row['dense_bound_ms'] = row.get('dense_bound_ms', 0.0) + dense_ms
 
 
@@ -475,46 +529,53 @@ def check_plane_resample_unrounded(chk, rng):
     torch.cuda.empty_cache()
 
 
-def report_conv(chk, kernel, name, ms, x_shape, co, nbytes):
+def report_conv(chk, kernel, name, ms, x_shape, co, nbytes, row=None):
     """Add a conv use's bound (its operations at the bf16 peak, or its bytes) and
     print its rate and share of that bound."""
     flops = conv_flops(x_shape, co)
-    b_ms = chk.add_bound(kernel, nbytes, flops, BF16_FLOP_S)
+    b_ms = chk.add_bound(kernel, nbytes, flops, BF16_FLOP_S, row)
     log(f"  {kernel:20s} {name:30s} {flops / ms / 1e9:.1f} TFLOP/s, bound {b_ms:.4f} ms "
-        f"({chk.rows[kernel]['bound_by']}), {100 * b_ms / ms:.1f}% of the bound")
+        f"({chk.rows[row or kernel]['bound_by']}), {100 * b_ms / ms:.1f}% of the bound")
 
 
-def check_conv3d(chk, rng):
-    """K3 at the decoder's full-resolution convs: (2, 96, 128^3) -> 48 and
-    (2, 48, 128^3) -> 48; the kernel's time includes the wrapper's weight layout
-    conversion and its channels-last staging of x. Tolerances on errors divided
-    by the reference's max."""
+# the decoder's full-resolution convs (Ci, Co): three views at reference widths
+# (the default step), and the from-segmented configs' two views
+CONVS_3V = ((96, 48), (48, 48))
+CONVS_2V = ((64, 32), (32, 32))
+
+
+def check_conv3d(chk, rng, convs=CONVS_3V, suffix=''):
+    """K3 at the decoder's full-resolution convs ``convs``: (2, Ci, 128^3) -> Co;
+    the kernel's time includes the wrapper's weight layout conversion and its
+    channels-last staging of x. Tolerances on errors divided by the reference's
+    max. Rows: the kernel's name + ``suffix``."""
     import torch.nn.functional as F
     from acquisition_focus_tpu_torch.ops.kernels.conv3d import conv3d
-    for ci in (96, 48):
-        log(f"K3 conv3d: (2, {ci}, 128^3) -> 48")
-        w = torch.randn((48, ci, 3, 3, 3), device='cuda') / (27 * ci) ** 0.5
-        b = torch.randn((48,), device='cuda') * 0.1
+    row = 'conv3d_fwd' + suffix
+    for ci, co in convs:
+        log(f"K3 conv3d: (2, {ci}, 128^3) -> {co}")
+        w = torch.randn((co, ci, 3, 3, 3), device='cuda') / (27 * ci) ** 0.5
+        b = torch.randn((co,), device='cuda') * 0.1
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
-            name = f"{str(dtype).split('.')[-1]} Ci{ci}"
+            name = f"{str(dtype).split('.')[-1]} Ci{ci} Co{co}"
             x = torch.randn((2, ci, 128, 128, 128), device='cuda').to(dtype)
             with torch.no_grad():
                 got = conv3d(x, w, b)
                 ref = F.conv3d(x, w.to(dtype), b.to(dtype), padding=1)
-                chk.compare('conv3d_fwd', f'{name} out', got, ref, tol, True)
+                chk.compare('conv3d_fwd', f'{name} out', got, ref, tol, True, row)
                 del got, ref
                 ms = chk.timed('conv3d_fwd', name, lambda: conv3d(x, w, b),
                                lambda: F.conv3d(x, w.to(dtype), b.to(dtype), padding=1),
-                               3, main=dtype == torch.bfloat16, library=True)
+                               3, main=dtype == torch.bfloat16, library=True, row=row)
                 if dtype == torch.bfloat16:
-                    report_conv(chk, 'conv3d_fwd', name, ms, x.shape, 48,
-                                2 * (x.numel() + 2 * 48 * 128 ** 3) + w.numel() * 2)
+                    report_conv(chk, 'conv3d_fwd', name, ms, x.shape, co,
+                                2 * (x.numel() + 2 * co * 128 ** 3) + w.numel() * 2, row)
             del x
 
 
-def check_conv3d_grads(chk):
-    """K3 as the input gradient and K4 at the decoder's full-resolution convs: x
-    (2, 96 or 48, 128^3), cotangent (2, 48, 128^3). The gradients come from
+def check_conv3d_grads(chk, convs=CONVS_3V, suffix=''):
+    """K3 as the input gradient and K4 at the decoder's full-resolution convs
+    ``convs``: x (2, Ci, 128^3), cotangent (2, Co, 128^3). The gradients come from
     ``torch.autograd.grad`` through ``conv3d(x, w, b, kernel_dx=True,
     kernel_dw=True)``, the main path's backward (its weight flip and its guards),
     with float32 weights as the model holds them. Each is held against the
@@ -525,44 +586,74 @@ def check_conv3d_grads(chk):
     K3-as-dx 1e-2 (bf16, one bf16 rounding of the output: up to 3.7e-03) and 1e-4
     (f32, 2.2e-06). Times are of the kernels' direct launches against the library
     in the same dtype (the gradients the 'fwd' mode takes), which is also each
-    row's library_ms."""
+    row's library_ms. Rows: the kernel's name + ``suffix``."""
     from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
         conv3d, conv3d_fwd_cuda, conv3d_wgrad_cuda)
     grad_input, grad_weight = torch.nn.grad.conv3d_input, torch.nn.grad.conv3d_weight
-    for ci in (96, 48):
-        log(f"K3 as dx, K4 wgrad: x (2, {ci}, 128^3), cotangent (2, 48, 128^3)")
-        w_shape = (48, ci, 3, 3, 3)
+    r_dx, r_dw = 'conv3d_dx' + suffix, 'conv3d_wgrad' + suffix
+    for ci, co in convs:
+        log(f"K3 as dx, K4 wgrad: x (2, {ci}, 128^3), cotangent (2, {co}, 128^3)")
+        w_shape = (co, ci, 3, 3, 3)
         w32 = torch.randn(w_shape, device='cuda') / (27 * ci) ** 0.5
-        b32 = torch.zeros(48, device='cuda')
+        b32 = torch.zeros(co, device='cuda')
         for dtype, tol_dx, tol_dw in ((torch.bfloat16, 1e-2, 5e-4),
                                       (torch.float32, 1e-4, 5e-5)):
-            name = f"{str(dtype).split('.')[-1]} Ci{ci}"
+            name = f"{str(dtype).split('.')[-1]} Ci{ci} Co{co}"
             main = dtype == torch.bfloat16
             x = torch.randn((2, ci, 128, 128, 128), device='cuda').to(dtype)
-            g = torch.randn((2, 48, 128, 128, 128), device='cuda').to(dtype)
+            g = torch.randn((2, co, 128, 128, 128), device='cuda').to(dtype)
             w = w32.to(dtype)
             xg, wg = x.clone().requires_grad_(), w32.clone().requires_grad_()
             dx, dw = torch.autograd.grad(conv3d(xg, wg, b32, True, True), (xg, wg), g)
             del xg, wg
             chk.compare('conv3d_dx', f'{name} dx', dx,
-                        grad_input(x.shape, w.float(), g.float(), padding=1), tol_dx, True)
+                        grad_input(x.shape, w.float(), g.float(), padding=1), tol_dx, True,
+                        r_dx)
             chk.compare('conv3d_wgrad', f'{name} dw', dw,
-                        grad_weight(x.float(), w_shape, g.float(), padding=1), tol_dw, True)
+                        grad_weight(x.float(), w_shape, g.float(), padding=1), tol_dw, True,
+                        r_dw)
             del dx, dw
             zb = torch.zeros(ci, device='cuda')
             w_t = w.flip(2, 3, 4).transpose(0, 1)
             ms_dx = chk.timed('conv3d_dx', name,
                               lambda: conv3d_fwd_cuda(g, w_t, zb, 'conv3d_dx'),
-                              lambda: grad_input(x.shape, w, g, padding=1), 3, main, True)
+                              lambda: grad_input(x.shape, w, g, padding=1), 3, main, True,
+                              r_dx)
             ms_dw = chk.timed('conv3d_wgrad', name, lambda: conv3d_wgrad_cuda(x, g),
-                              lambda: grad_weight(x, w_shape, g, padding=1), 3, main, True)
+                              lambda: grad_weight(x, w_shape, g, padding=1), 3, main, True,
+                              r_dw)
             if main:
                 report_conv(chk, 'conv3d_dx', name, ms_dx, g.shape, ci,
-                            2 * (g.numel() + x.numel()) + w.numel() * 2)
-                report_conv(chk, 'conv3d_wgrad', name, ms_dw, x.shape, 48,
-                            2 * (x.numel() + g.numel()) + 4 * w.numel())
+                            2 * (g.numel() + x.numel()) + w.numel() * 2, r_dx)
+                report_conv(chk, 'conv3d_wgrad', name, ms_dw, x.shape, co,
+                            2 * (x.numel() + g.numel()) + 4 * w.numel(), r_dw)
             del x, g
             torch.cuda.empty_cache()
+
+
+FS = ' from-segmented'      # suffix of the rows at the from-segmented sweep's shapes
+FS_KERNELS = ('plane_resample_fwd', 'plane_resample_bwd', 'conv3d_fwd', 'conv3d_dx',
+              'conv3d_wgrad')
+
+
+def check_from_segmented_kernels(chk, rng):
+    """The from-segmented sweep's own launch shapes (axial + coronal: the hybrid
+    U-Net's features are two views x the base widths): K1 as that path launches it,
+    two views into the decoder's concat buffer at the six levels, and K3, K3 as dx
+    and K4 at its full-resolution decoder convs, 64 -> 32 and 32 -> 32, each against
+    its plain version at the default shapes' tolerances, in the rows '<kernel>
+    from-segmented' (K2 at that path's prescan: check_volume_resample_prescan32).
+    K1 is timed with half the iterations of the default shapes."""
+    for S, C in SKIP_LEVELS:
+        log(f"K1 skip_concat, two views: (2, {2 * C}, {S}, {S}) -> (2, {4 * C}, {S}^3)")
+        for dtype, tol_f, tol_b in ((torch.bfloat16, 1e-2, 3e-2),
+                                    (torch.float32, 2e-4, 1e-3)):
+            check_skip_concat(chk, rng, S, C, dtype, tol_f, tol_b, 10 if S < 64 else 5,
+                              dtype == torch.bfloat16, V=2, suffix=FS)
+            torch.cuda.empty_cache()
+    check_conv3d(chk, rng, CONVS_2V, FS)
+    check_conv3d_grads(chk, CONVS_2V, FS)
+    torch.cuda.empty_cache()
 
 
 def phantom_batch(spec, device):
@@ -697,13 +788,14 @@ def host_s(fn, calls=3):
     return sum(times[1:]) / (calls - 1)
 
 
-N_CASES = 14                # 12 training cases (fold 0: 8 train, 4 val) + 2 test
+N_CASES = 8                 # 6 training cases (fold 0: 4 train, 2 val) + 2 test; 14
+                            # until the from-segmented phases needed the time
 BUILD_CASE_TOL = 1e-5       # share of a volume's voxels whose label may differ
                             # between the card's and the CPU's build
 
 
 def run_build(tmp):
-    """The dataset build on the card: ``write_phantom_dataset`` writes 14 phantom
+    """The dataset build on the card: ``write_phantom_dataset`` writes N_CASES phantom
     cases at 128^3 and 1.5 mm (the default 128^3 @ 192 mm hires grid, not cut) as
     NIfTI files; the port's ``load_or_build`` builds the training and test sets
     from them on the card with the cache off (hires resample, clinical views,
@@ -836,7 +928,7 @@ def run_sweep(tmp, data):
     phantom dataset, fold 0, cache off) builds the cases from the NIfTI files on
     the card and runs opt_view0..2 and ref, 2 epochs each (epoch 0 trains the
     locnet, epoch 1 runs from cached thetas and computes the heavy metrics on the
-    device), 8 training, 4 validation and 2 test cases at 128^3, with the build's
+    device), 4 training, 2 validation and 2 test cases at 128^3, with the build's
     p2CH view planes. Per stage it reads what the run writes: the sweep state
     (saves, the transform checkpoint each opt stage loaded) and ``metrics.jsonl``
     (epoch seconds, scores)."""
@@ -1115,6 +1207,240 @@ def check_small_reference():
         raise AssertionError(f"eval_step pred/dice disagree: {flipped}, {dice_err}")
 
 
+SEG_STEPS = 300             # segmenter training steps (the recipe's default: 50 x 50)
+# config_dict_id13.json's from-segmented settings; segment_extra_permute off for the
+# in-framework segmenter
+FS_META = dict(base_views=['axial', 'coronal'], prescan_fov_mm=[192.0] * 3,
+               prescan_fov_vox=[32] * 3, clinical_view_affine_type='from-segmented',
+               label_slice_type='from-segmented', segment_extra_permute=False)
+# set explicitly: a segmenter trained for SEG_STEPS steps may miss the default
+# build gate (Dice 0.5, HD95 12 mm)
+FS_GATE = dict(min_prescan_dice=0.0, max_prescan_hd95_mm=1e9)
+
+
+def train_segmenter_on_card(tmp, data):
+    """``scripts/train_segmenter.py`` on the card at full width: reference features
+    (32..512), the 128^2 slices of the 128^3 @ 1.5 mm training volumes of the
+    build phase's files, batch 8, GIN and ``--multires``, SEG_STEPS steps from
+    seed 0. Returns the checkpoint path and the script's summary."""
+    from acquisition_focus_tpu_torch.scripts import train_segmenter
+    ckpt = tmp / 'segmenter.pt'
+    log(f"segmenter: python -m acquisition_focus_tpu_torch.scripts.train_segmenter "
+        f"--dataset synthetic --epochs 1 --steps_per_epoch {SEG_STEPS} --batch 8 "
+        f"--multires (128^2 @ 1.5 mm, features 32..512)")
+    t0 = time.perf_counter()
+    res = train_segmenter.main([
+        '--data_dir', str(data), '--out', str(ckpt), '--dataset', 'synthetic',
+        '--epochs', '1', '--steps_per_epoch', str(SEG_STEPS), '--batch', '8', '--multires',
+        '--seed', '0', '--cache_dir', str(tmp / 'seg_cache')])
+    torch.cuda.synchronize()
+    log(f"  segmenter: {res['steps']} steps, {res['s_step']:.4f} s/step after the first, "
+        f"final loss {res['final_loss']!r}; {time.perf_counter() - t0:.1f} s with its "
+        f"dataset build")
+    if res['steps'] != SEG_STEPS or not np.isfinite(res['final_loss']):
+        raise AssertionError(f"segmenter training: {res}")
+    return ckpt, res
+
+
+def build_from_segmented(tmp, data, ckpt):
+    """The from-segmented build of the 2 test cases on the card (``load_or_build``,
+    cache off): the 32^3 @ 192 mm prescan image resampled from the hires image and
+    segmented by the trained segmenter, its view planes, the centroid base on the
+    hires-interpolated segmentation; per case its Dice and HD95 against the GT, and
+    seconds per case. The gate's quality, computed on the card, is held against the
+    host's on the same segmentation moved to the CPU: Dice equal to 1e-12, HD95
+    against scipy's EDT (the JAX package's) within 1e-6 mm."""
+    from acquisition_focus_tpu_torch.data import base_dataset
+    from acquisition_focus_tpu_torch.data.cache import load_or_build
+    from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
+    from acquisition_focus_tpu_torch.engine.metrics import hausdorff_per_class
+    from acquisition_focus_tpu_torch.engine.runner import load_config
+    config = load_config(overrides=dict(FS_META, **FS_GATE, segment_model_path=str(ckpt),
+                                        use_caching=False))
+    log(f"from-segmented build: prescan {config['prescan_fov_vox']} @ "
+        f"{config['prescan_fov_mm']} mm, segment_extra_permute false; build gate set "
+        f"explicitly to min_prescan_dice {FS_GATE['min_prescan_dice']}, "
+        f"max_prescan_hd95_mm {FS_GATE['max_prescan_hd95_mm']:g}")
+    quality, seen = base_dataset._prescan_quality, []
+
+    def recorded(seg, gt, nii, n):
+        q = quality(seg, gt, nii, n)
+        seen.append((seg.is_cuda, seg.cpu(), gt.cpu(), nii, n, q))
+        return q
+
+    base_dataset._prescan_quality = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ds = load_or_build(MMWHSDataset, data, config, 'test')
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        base_dataset._prescan_quality = quality
+    if len(seen) != len(ds) or not all(r[0] for r in seen):
+        raise AssertionError(f"prescan quality: {len(seen)} calls for {len(ds)} cases, "
+                             f"on the card: {[r[0] for r in seen]}")
+    for _, seg, gt, nii, n, q in seen:
+        host = quality(seg, gt, nii, n)
+        zoom = float(np.linalg.norm(np.sqrt((np.asarray(nii, np.float32)[:3, :3] ** 2).sum(0))))
+        scipy_hd95 = hausdorff_per_class(seg[None].numpy(), gt[None].numpy(), n, 95)[0] * zoom
+        d_dice = np.nanmax(np.abs(q['dice'] - host['dice']))
+        d_hd = max(np.nanmax(np.abs(q['hd95'] - h)) for h in (host['hd95'], scipy_hd95))
+        same_nan = all(np.array_equal(np.isnan(q[k]), np.isnan(h)) for k, h in
+                       (('dice', host['dice']), ('hd95', host['hd95']), ('hd95', scipy_hd95)))
+        ok = d_dice <= 1e-12 and d_hd <= 1e-6 and same_nan
+        log(f"  prescan quality, card vs host (same segmentation): Dice max diff {d_dice:.3e} "
+            f"(tol 1e-12), HD95 vs the CPU and scipy max diff {d_hd:.3e} mm (tol 1e-6), "
+            f"NaNs alike {same_nan}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"prescan quality card vs host: {q} vs {host}, scipy "
+                                 f"{scipy_hd95}")
+    for cid, case in sorted(ds.cases.items()):
+        q = case['prescan_quality']
+        gap = np.abs(case['prescan_view_affines']['axial']
+                     - case['gt_view_affines']['axial']).max()
+        log(f"  {cid}: prescan Dice {q['dice_mean']!r}, HD95 {q['hd95_mean']!r} mm; "
+            f"per class Dice {np.round(q['dice'][1:], 4).tolist()}; axial view affine "
+            f"vs GT's max abs diff {gap:.4f}")
+        if case['prescan_label'].shape != (32,) * 3:
+            raise AssertionError(f"{cid}: prescan label {case['prescan_label'].shape}")
+    log(f"  {len(ds)} cases in {dt:.2f} s, {dt / len(ds):.3f} s per case")
+    return {'s_per_case': dt / len(ds),
+            'quality': {c: ds.cases[c]['prescan_quality']['dice_mean'] for c in ds.cases}}
+
+
+def run_from_segmented_sweep(tmp, data, ckpt):
+    """The from-segmented sweep through the CLI at full width: a meta config like
+    ``config_dict_id13.json`` (axial + coronal, 32^3 @ 192 mm prescan, from-segmented
+    view planes and label slices) with the trained segmenter, ``'full'``, 2 epochs
+    per stage (80 in the config), fold 0, cache off: opt_view0, opt_view1 and ref;
+    validation and test segment the image slices. K1f, K1b, K2, K3 (forward and
+    input gradient) and K4 must all launch in it."""
+    from acquisition_focus_tpu_torch import main as cli
+    from acquisition_focus_tpu_torch.ops.kernels import _lib
+    state_path = tmp / 'fs_sweep_state.json'
+    meta = tmp / 'fs_meta.json'
+    meta.write_text(json.dumps(dict(
+        FS_META, **FS_GATE, segment_model_path=str(ckpt), epochs=2,
+        use_pallas_conv3d='full', save_every='best', do_output=True,
+        sweep_state_path=str(state_path), log_dir=str(tmp / 'fs_runs'),
+        mdl_save_prefix=str(tmp / 'fs_models'), dataset=['synthetic', str(data)],
+        fold_override=0, use_caching=False)))
+    log(f"from-segmented sweep: python -m acquisition_focus_tpu_torch.main "
+        f"--meta_config_path {meta.name}: config_dict_id13.json's views and prescan, "
+        f"from-segmented, 'full', 2 epochs per stage, fold 0, cache off, build gate as "
+        f"above")
+    torch.cuda.synchronize()
+    _lib.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(['--meta_config_path', str(meta), '--base_dir', str(tmp)])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
+    missing = [k for k in STEP_KERNELS['full'] if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the from-segmented sweep: {missing}")
+    _, _, epochs_total = check_sweep(state_path, tmp / 'fs_runs',
+                                     ['opt_view0', 'opt_view1', 'ref'])
+    log(f"  epochs {epochs_total:.3f} s of the CLI run's {sweep_s:.3f} s")
+    torch.cuda.empty_cache()
+    return launches, sweep_s
+
+
+def check_from_segmented_reference(ckpt):
+    """A float32 from-segmented ``eval_step`` at 32^2 slices of 6 mm (the shape of
+    ``config_dict_id14.json``: respaced to 128^2 for the segmenter, the one-hot
+    prediction shrunk to the 32^2 hires plane) with the trained segmenter, on the
+    GPU (TF32 off) against the CPU, narrow reconstruction widths. The segmented
+    slices may differ at argmax near-ties: at most 1e-3 of their pixels; the loss
+    within 1e-3 of its value. Then ``slice_min_principal_align_affines`` of phantom
+    label slices on the GPU against the CPU, on what is invariant to an
+    eigenvector's sign: the in-plane axis up to its sign, and the aligned slice up
+    to the 180-degree turn. Also reports on how many of these inertia tensors
+    cuSOLVER's ``torch.linalg.eigh`` picks the other sign than LAPACK's ``syevd``
+    (the port solves them on the host, as the JAX package's CPU ``eigh``)."""
+    from acquisition_focus_tpu_torch.data import make_heart_phantom
+    from acquisition_focus_tpu_torch.engine import train
+    from acquisition_focus_tpu_torch.engine.segmenter import load_segmenter
+    from acquisition_focus_tpu_torch.geometry.moments import (
+        label_inertia_tensor, principal_axes, slice_min_principal_align_affines)
+    from acquisition_focus_tpu_torch.ops.resample import nifti_grid_sample
+    spec = train.StageSpec(
+        n_views=2, num_classes=6, n_active_views=2, view_optimization_mode='opt-all',
+        use_affine_theta=True, hires_fov_mm=(192.0,) * 3, hires_fov_vox=(32,) * 3,
+        slice_fov_mm=(192.0, 192.0, 6.0), slice_fov_vox=(32, 32, 1),
+        prescan_fov_mm=(192.0,) * 3, prescan_fov_vox=(32,) * 3, compute_dtype='float32',
+        augment_input=False, base_features=(4, 8, 16), locnet_width=2,
+        label_slice_type='from-segmented')
+    phantoms = [make_heart_phantom((32,) * 3, seed=20 + i, spacing=(6.0,) * 3)
+                for i in range(2)]
+    batch = {'label': np.stack([p[0] for p in phantoms]),
+             'image': np.stack([p[1] for p in phantoms]),
+             'nii_affine': np.broadcast_to(np.diag([6.0, 6.0, 6.0, 1.0]), (2, 4, 4)),
+             'view_affines': rotations(np.random.default_rng(2), 4, 0.05).cpu().numpy()
+             .reshape(2, 2, 4, 4)}
+    out = {}
+    for device in ('cpu', 'cuda'):
+        unet, atms, _, _ = build_step(spec, device)
+        b = {k: torch.tensor(np.array(v), device=device,
+                             dtype=torch.int64 if k == 'label' else torch.float32)
+             for k, v in batch.items()}
+        seg = load_segmenter(ckpt, 6, device)
+        out[device] = train.eval_step(spec, unet, atms, b, segmenter=seg)
+    c, g = out['cpu'], out['cuda']
+    lab_c = c['b_input'].reshape(2, 2, 6, 32, 32).argmax(2)
+    lab_g = g['b_input'].cpu().reshape(2, 2, 6, 32, 32).argmax(2)
+    flipped = (lab_c != lab_g).float().mean().item()
+    rel = abs(g['loss'].item() - c['loss'].item()) / max(abs(c['loss'].item()), 1e-30)
+    log(f"from-segmented eval_step at 32^2 slices (6 mm), GPU vs CPU: segmented slice "
+        f"labels differ at {flipped:.3e} of the pixels (tol 1e-3); loss {g['loss'].item()!r}"
+        f" vs {c['loss'].item()!r}, rel diff {rel:.3e} (tol 1e-3)")
+    if not (flipped <= 1e-3 and rel <= 1e-3):
+        raise AssertionError(f"from-segmented eval_step: GPU vs CPU {flipped}, {rel}")
+
+    lbl = make_heart_phantom((32,) * 3, seed=1)[0]
+    sl = np.stack([lbl[i] for i in range(6, 26, 2)] + [lbl[:, i] for i in range(6, 26, 3)])
+    sl = torch.tensor(sl[..., None].astype(np.int32))
+    align = {d: slice_min_principal_align_affines(sl.to(d)).cpu() for d in ('cpu', 'cuda')}
+    axis_c, axis_g = align['cpu'][:, :3, 1], align['cuda'][:, :3, 1]
+    axis_err = (torch.abs((axis_c * axis_g).sum(-1)) - 1).abs().max().item()
+    onehot = torch.nn.functional.one_hot(sl.long(), 6)[..., 0, :].permute(0, 3, 1, 2)[..., None]
+    nii = torch.eye(4).repeat(len(sl), 1, 1)
+    content = {d: nifti_grid_sample(onehot.float(), nii, pre_grid_sample_affine=align[d])[0]
+               .argmax(1) for d in align}
+    same = (content['cpu'] == content['cuda']).float().flatten(1).mean(1)
+    turned = (content['cpu'] == content['cuda'].flip(1, 2)).float().flatten(1).mean(1)
+    worst = 1.0 - torch.maximum(same, turned).min().item()
+    n_turned = int((turned > same).sum())
+    sign_flips = 0
+    for s in sl:
+        _, inertia = label_inertia_tensor(s.cuda() != 0)
+        v_cusolver = torch.linalg.eigh(inertia)[1][:, 0].cpu().numpy()
+        sign_flips += int(np.dot(v_cusolver, principal_axes(inertia)[0]) < 0)
+    log(f"slice alignment, GPU vs CPU, {len(sl)} phantom slices: in-plane axis "
+        f"| |dot| - 1 | max {axis_err:.3e} (tol 1e-5); aligned content differs at "
+        f"{worst:.3e} of the pixels at most (tol 1e-3), {n_turned} slices turned by 180 "
+        f"degrees; cuSOLVER eigh picks the other sign than LAPACK's syevd on "
+        f"{sign_flips} of {len(sl)} inertia tensors (the port solves on the host)")
+    if not (axis_err <= 1e-5 and worst <= 1e-3):
+        raise AssertionError(f"slice alignment GPU vs CPU: {axis_err}, {worst}")
+    return {'eval_flipped': flipped, 'eval_loss_rel': rel, 'align_axis_err': axis_err,
+            'align_content_err': worst, 'cusolver_sign_flips': sign_flips,
+            'n_slices': len(sl)}
+
+
+def run_from_segmented(tmp, data):
+    """The from-segmented phases in order: the segmenter's training, the build, the
+    CLI sweep, the GPU-vs-CPU checks."""
+    ckpt, seg = train_segmenter_on_card(tmp, data)
+    build = build_from_segmented(tmp, data, ckpt)
+    launches, sweep_s = run_from_segmented_sweep(tmp, data, ckpt)
+    ref = check_from_segmented_reference(ckpt)
+    return {'segmenter': seg, 'build': build, 'launches': launches, 'sweep_s': sweep_s,
+            'reference': ref}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1139,10 +1465,12 @@ def main():
     rng = np.random.default_rng(0)
     chk = Checker()
     check_volume_resample(chk, rng)
+    check_volume_resample_prescan32(chk, np.random.default_rng(3))
     check_plane_resample(chk, rng)
     check_plane_resample_unrounded(chk, rng)
     check_conv3d(chk, rng)
     check_conv3d_grads(chk)
+    check_from_segmented_kernels(chk, np.random.default_rng(4))
     torch.cuda.empty_cache()
 
     fwd = run_steps('fwd')
@@ -1152,6 +1480,7 @@ def main():
         data = run_build(Path(tmp))
         launches = run_sweep(Path(tmp), data)
         epix_launches = run_epix2vox_sweep(Path(tmp), data)
+        fs = run_from_segmented(Path(tmp), data)
     epix = run_epix2vox_steps()
     check_epix2vox_reference()
     check_small_reference()
@@ -1174,7 +1503,8 @@ def main():
     kernels = [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
                 'launches': launches[name],
                 'launches_by_path': {'sweep': launches[name],
-                                     'epix2vox_sweep': epix_launches[name]},
+                                     'epix2vox_sweep': epix_launches[name],
+                                     'from_segmented_sweep': fs['launches'][name]},
                 'launches_per_step': {m: r['launches'][name] / STEPS
                                       for m, r in (('fwd', fwd), ('full', full))},
                 'max_abs_err': chk.rows[name]['max_abs_err'],
@@ -1185,11 +1515,26 @@ def main():
                 **({'dense_bound_ms': chk.rows[name]['dense_bound_ms']}
                    if 'dense_bound_ms' in chk.rows[name] else {}),
                 **({f'one_view_{k}': chk.rows[ONE_VIEW[name]][k]
-                    for k in ('ms', 'plain_ms', 'bound_ms')} if name in ONE_VIEW else {})}
+                    for k in ('ms', 'plain_ms', 'bound_ms')} if name in ONE_VIEW else {}),
+                **({'prescan32': {k: chk.rows[PRESCAN32][k] for k in
+                                  ('max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by')}}
+                   if name == 'volume_resample' else {}),
+                **({'from_segmented': {k: chk.rows[name + FS].get(k) for k in
+                                       ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                                        'bound_by', 'library_ms')}}
+                   if name in FS_KERNELS else {})}
                for name, (src, rep) in sources.items()]
+    for k in kernels:
+        for shape in ('prescan32', 'from_segmented'):
+            if shape in k:
+                k['max_abs_err'] = max(k['max_abs_err'], k[shape]['max_abs_err'])
     log("(E)Pix2Vox s/step at batch 1 x accum 4, 2 views, 128^3: " + "; ".join(
         f"{mt} TF32 {'on' if tf32 else 'off'} {r['s_step']:.4f} s, peak {r['peak']} B"
         for (mt, tf32), r in epix.items()))
+    log(f"from-segmented: segmenter {fs['segmenter']['s_step']:.4f} s/step, final loss "
+        f"{fs['segmenter']['final_loss']:.4f}; build {fs['build']['s_per_case']:.3f} s per "
+        f"case; CLI sweep {fs['sweep_s']:.1f} s; cuSOLVER sign flips "
+        f"{fs['reference']['cusolver_sign_flips']} of {fs['reference']['n_slices']}")
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

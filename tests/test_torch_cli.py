@@ -1,8 +1,9 @@
 """The port's CLI (``acquisition_focus_tpu_torch/main.py``) and run summaries
 (``utils/results.py``) on the CPU: fold construction against the JAX package's,
 ``main()`` end to end on a phantom dataset written to disk, the result tables, and
-every shipped meta config either building its stages' models (the (E)Pix2Vox
-configs included) or refusing an unported option by name.
+every shipped meta config building its stages' models (the (E)Pix2Vox configs
+included; the from-segmented ones also load a tiny segmenter and segment slices
+with it).
 """
 
 import glob
@@ -166,19 +167,36 @@ def _configs():
                                 'config_dict_id*.json')))
 
 
-def _unported(config):
-    """The option a shipped config needs that the port does not have, or None."""
-    if config.get('clinical_view_affine_type') == 'from-segmented':
-        return 'from-segmented'
-    return None
+def _from_segmented(config):
+    return config.get('clinical_view_affine_type') == 'from-segmented'
 
 
-def _build_specs(meta_path):
+@pytest.fixture(scope='module')
+def tiny_segmenter(tmp_path_factory):
+    """A (4, 8)-wide segmenter from flax's init, converted and saved as the port's
+    ``torch.save`` checkpoint."""
+    import jax
+    import jax.numpy as jnp
+    from acquisition_focus_tpu.models.segmentation.unet2d import SegUnet2D
+    from acquisition_focus_tpu_torch.convert import segunet_state_dict
+    params = jax.jit(SegUnet2D(num_classes=6, features=(4, 8)).init)(
+        jax.random.key(0), jnp.zeros((1, 32, 32, 1)))
+    path = tmp_path_factory.mktemp('segmenter') / 'seg.pt'
+    torch.save({'params': segunet_state_dict(jax.tree_util.tree_map(np.asarray, params)),
+                'num_classes': 6}, path)
+    return str(path)
+
+
+def _build_specs(meta_path, segmenter=None):
     """Every stage's train and test StageSpec of one config at skinny widths, and
-    its models on the CPU; raises where an option is not ported."""
+    its models on the CPU; from-segmented configs load ``segmenter`` through the
+    runner and segment random image slices of the test spec's shape with it."""
+    from acquisition_focus_tpu_torch.engine.runner import _load_segmenter
+    from acquisition_focus_tpu_torch.engine.train import segment_slices
     config = load_config(None, meta_path)
     config['base_features'] = [4, 4, 8, 8, 8, 8]
     config['locnet_width'] = 4
+    config['segment_model_path'] = segmenter
     num_classes = 2 if config.get('use_binarized_labels') else 6
     check_ported_config(config)
     built = 0
@@ -189,37 +207,44 @@ def _build_specs(meta_path):
             sc = merge_stage_config(config, stage)
             n_active = int(sc.get('n_active_views') or len(sc['base_views']))
             train = spec_from_config(sc, num_classes, n_active, 'train')
-            spec_from_config(sc, num_classes, n_active, 'test')
+            test = spec_from_config(sc, num_classes, n_active, 'test')
             unet, atms = make_models(train, 'cpu')
             assert len(atms) == train.n_views and train.num_classes in (2, 6)
+            seg = _load_segmenter(sc, num_classes, 'cpu')
+            assert (seg is not None) == _from_segmented(config)
+            if seg is not None:
+                sh, sw = test.slice_fov_vox[:2]
+                image = torch.randn(n_active, 1, 1, sh, sw,
+                                    generator=torch.Generator().manual_seed(0))
+                onehot = segment_slices(test, seg, image)
+                assert onehot.shape == (n_active, 1, num_classes) + test.hires_fov_vox[:2]
+                assert torch.equal(onehot.sum(2), torch.ones_like(onehot.sum(2)))
             built += 1
     return built
 
 
 @pytest.mark.parametrize('meta_path', _configs(), ids=lambda p: '/'.join(Path(p).parts[-2:]))
-def test_every_config_builds_or_names_what_is_missing(meta_path):
-    """A config builds its port StageSpecs and models (the (E)Pix2Vox configs
-    their ``EPix2VoxModel128``), or raises ``NotImplementedError`` naming the
-    option it needs: the from-segmented path."""
-    need = _unported(json.loads(Path(meta_path).read_text()))
-    if need is None:
-        assert _build_specs(meta_path) >= 1
-    else:
-        with pytest.raises(NotImplementedError, match=need):
-            _build_specs(meta_path)
+def test_every_config_builds_or_names_what_is_missing(meta_path, tiny_segmenter):
+    """Every config builds its port StageSpecs and models (the (E)Pix2Vox configs
+    their ``EPix2VoxModel128``); a from-segmented config also runs its segmenter
+    (a tiny converted one) on slices of its shape. Nothing is missing."""
+    meta = json.loads(Path(meta_path).read_text())
+    assert _build_specs(meta_path, tiny_segmenter if _from_segmented(meta) else None) >= 1
 
 
 def test_32_of_54_shipped_configs_build():
-    """44 of the 54 shipped configs build since (E)Pix2Vox is ported (32 before:
-    the 12 (E)Pix2Vox configs are among the 44); the other 10 need from-segmented."""
+    """All 54 shipped configs build since the from-segmented path is ported (32
+    before (E)Pix2Vox, 44 before from-segmented): 12 (E)Pix2Vox configs, 10
+    from-segmented ones, and none that needs both."""
     configs = _configs()
     metas = [json.loads(Path(p).read_text()) for p in configs]
-    needs = [_unported(m) for m in metas]
     assert len(configs) == 54
-    assert needs.count(None) == 44 and needs.count('from-segmented') == 10
-    epix = [m for m, n in zip(metas, needs)
-            if m.get('model_type') in ('hybrid-EPix2Vox', 'hybrid-Pix2Vox')]
+    segmented = [m for m in metas if _from_segmented(m)]
+    assert len(segmented) == 10
+    assert all(m.get('label_slice_type') == 'from-segmented' for m in segmented)
+    epix = [m for m in metas if m.get('model_type') in ('hybrid-EPix2Vox', 'hybrid-Pix2Vox')]
     assert len(epix) == 12 and all(m.get('use_binarized_labels') for m in epix)
+    assert not any(_from_segmented(m) for m in epix)
 
 
 # ---------------------------------------------------------------- the run script

@@ -127,15 +127,6 @@ def test_cache_miss_builds_and_either_package_reads_it(phantom_dir, tmp_path):
                                       case['input_view_affines'])
 
 
-def test_from_segmented_build_is_refused(phantom_dir):
-    cfg = load_config(overrides=dict(GRID, clinical_view_affine_type='from-segmented'))
-    with pytest.raises(NotImplementedError, match='from-segmented'):
-        tcache.load_or_build(MMWHSDataset, phantom_dir, cfg, 'train', device='cpu')
-    cfg['segment_model_path'] = 'segmenter'
-    with pytest.raises(NotImplementedError, match='segment_model_path'):
-        tcache.load_or_build(MRXCATDataset, phantom_dir, cfg, 'train', device='cpu')
-
-
 # ---------------------------------------------------------------- copies
 
 def test_nifti_io_copy_round_trips_with_the_original(tmp_path):

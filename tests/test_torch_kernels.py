@@ -658,7 +658,20 @@ def test_skip_concat_kernel_matches_plain(cuda, dtype, S, F, with_y):
     multiples of 2^-6 (both coordinate forms exact): the buffer and the gradients
     to y (bit-equal), the slices and theta, at the tolerances of
     test_plane_resample_kernel_matches_plain."""
-    V = 3
+    check_skip_concat_kernel(cuda, dtype, S, F, with_y, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S,F,with_y', [(16, 3, True), (8, 16, True), (32, 4, False),
+                                        (128, 2, True)])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_skip_concat_kernel_matches_plain_two_views(cuda, dtype, S, F, with_y):
+    """As test_skip_concat_kernel_matches_plain with two views (the from-segmented
+    configs' axial + coronal)."""
+    check_skip_concat_kernel(cuda, dtype, S, F, with_y, 2)
+
+
+def check_skip_concat_kernel(cuda, dtype, S, F, with_y, V):
     slices, theta, _ = view_inputs(cuda, S, F, V, dtype, seed=22, rounded=True)
     y = torch.randn((2, 5) + (S,) * 3, device=cuda).to(dtype) if with_y else None
     g = torch.randn((2, (5 if with_y else 0) + V * F) + (S,) * 3, device=cuda).to(dtype)
@@ -688,7 +701,10 @@ K2_ZOOMS = (0.7, 0.85, 1.0, 1.15, 1.3, 1.45)
     (2, 8, 6, K2_ZOOMS, DHW, (16, 32, 40)),
     (2, 11, 6, K2_ZOOMS, DHW, (16, 32, 40)),
     # odd output width (single stores at each row's end) and odd extents
-    (1, 3, 2, (1.1,), (17, 19, 21), (15, 17, 19))])
+    (1, 3, 2, (1.1,), (17, 19, 21), (15, 17, 19)),
+    # a shrink by 4 per axis over the same field of view (the from-segmented
+    # configs' 32^3 prescan from the 128^3 volume)
+    (2, 6, 4, (1.0,), (64, 64, 64), (16, 16, 16))])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_volume_resample_kernel_matches_plain(cuda, dtype, B, C, n_theta, zooms, in_dhw,
                                               out_dhw):
@@ -709,7 +725,8 @@ def test_volume_resample_kernel_matches_plain(cuda, dtype, B, C, n_theta, zooms,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70), (48, 96)])
+@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70), (48, 96), (64, 32),
+                                   (32, 32), (32, 64)])
 def test_conv3d_kernel_matches_plain(cuda, dtype, ci, co):
     rng = np.random.default_rng(2)
     x = T(rng.normal(size=(2, ci, 8, 12, 128)), device=cuda).to(dtype)
@@ -736,7 +753,7 @@ def test_conv3d_kernel_gradients_are_the_library_ones(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70)])
+@pytest.mark.parametrize('ci,co', [(5, 7), (96, 48), (48, 48), (16, 70), (64, 32), (32, 32)])
 def test_conv3d_wgrad_kernel_matches_plain(cuda, dtype, ci, co):
     """K4 against the library's weight gradient in float32 on the same inputs:
     5e-4 (bf16) and 5e-5 (f32) of the reference's max (chip_smoke.py states the
@@ -757,11 +774,25 @@ def test_conv3d_wgrad_kernel_matches_plain(cuda, dtype, ci, co):
 def test_conv3d_mode_gradients_match_library(cuda, dtype, mode):
     """K3 as the input gradient and K4 as the weight gradient against the
     library's gradients of F.conv3d in float32 on the same inputs."""
+    check_conv3d_mode_gradients(cuda, dtype, mode, 1, 16, 24)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ci,co', [(64, 32), (32, 32)])
+def test_conv3d_full_gradients_at_the_two_view_channels(cuda, dtype, ci, co):
+    """As test_conv3d_mode_gradients_match_library under 'full', at batch 2 and the
+    full-resolution decoder convs of a two-view hybrid U-Net (the from-segmented
+    configs): 64 -> 32 and 32 -> 32."""
+    check_conv3d_mode_gradients(cuda, dtype, 'full', 2, ci, co)
+
+
+def check_conv3d_mode_gradients(cuda, dtype, mode, B, ci, co):
     rng = np.random.default_rng(6)
-    x = T(rng.normal(size=(1, 16, 8, 4, 128)), device=cuda).to(dtype).requires_grad_()
-    w = T(rng.normal(size=(24, 16, 3, 3, 3)) * 0.1, device=cuda).requires_grad_()
-    b = T(rng.normal(size=(24,)), device=cuda).requires_grad_()
-    g = T(rng.normal(size=(1, 24, 8, 4, 128)), device=cuda).to(dtype)
+    x = T(rng.normal(size=(B, ci, 8, 4, 128)), device=cuda).to(dtype).requires_grad_()
+    w = T(rng.normal(size=(co, ci, 3, 3, 3)) * 0.1, device=cuda).requires_grad_()
+    b = T(rng.normal(size=(co,)), device=cuda).requires_grad_()
+    g = T(rng.normal(size=(B, co, 8, 4, 128)), device=cuda).to(dtype)
     got = torch.autograd.grad(conv3d(x, w, b, mode in ('dx', 'full'), mode in ('wg', 'full')),
                               (x, w, b), g)
     x32 = x.detach().float().requires_grad_()

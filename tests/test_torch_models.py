@@ -153,6 +153,32 @@ def test_hybrid_unet_grads_match(unet_pair):
             close_scaled(p.grad.numpy(), ref[name].numpy(), 1e-4)
 
 
+def test_hybrid_unet_with_a_single_voxel_level_matches():
+    """Five levels at 16^3, as six at 32^3 (the reference widths at the smoke
+    configs' size): the deepest instance norms see one voxel, where the normalized
+    value is 0 and the output the norm's bias, in both frameworks. The levels of
+    2^3 voxels above it amplify rounding: within 1e-4. The port's gradient through
+    that level is exactly 0 for the input and the norm's scale."""
+    rng = np.random.default_rng(1)
+    kw = dict(n_views=2, num_classes=3, base_features=(2, 2, 4, 4, 4))
+    x = rng.random((1, 6, 16, 16)).astype(np.float32)
+    aff = rotation_affines(rng, 2).reshape(2, 1, 4, 4)
+    jmod = JHybridUnet(**kw, dtype=jnp.float32, remat_skips=False,
+                       decoder_save_names=('conv_out',))
+    params = jax.jit(jmod.init)(jax.random.key(0), jnp.asarray(x), jnp.asarray(aff))
+    params = jax.tree_util.tree_map(
+        lambda p: np.asarray(p) + 0.1 * rng.normal(size=p.shape).astype(np.float32), params)
+    ref = jax.jit(jmod.apply)(params, jnp.asarray(x), jnp.asarray(aff))
+    tmod = HybridUnet(**kw)
+    tmod.load_state_dict(unet_state_dict(to_np(params)))
+    out = tmod(T(x), T(aff))
+    close_scaled(out.detach().numpy(), ref, 1e-4)
+    out.sum().backward()
+    deepest = dict(tmod.named_parameters())
+    assert float(deepest['encoder.4.a_norm.weight'].grad.abs().max()) == 0.0
+    assert float(deepest['encoder.4.b_norm.bias'].grad.abs().max()) > 0.0
+
+
 def test_conv_transpose_needs_the_kernel_flip(rng):
     """flax ConvTranspose((2,2,2), strides=2) equals torch ConvTranspose3d only with
     the kernel flipped on all three spatial axes."""

@@ -197,6 +197,18 @@ def test_device_hausdorff_matches_jax(label_pair, monkeypatch, chunk):
     assert np.isnan(got[0, 5]).all() and np.isnan(got[1, 4]).all()
 
 
+def test_device_hausdorff_in_float64_is_the_host_path(label_pair):
+    """In float64 (the from-segmented build gate's HD95) the device path gives the
+    host path's scipy numbers to 1e-12."""
+    pred, target = label_pair
+    got = tmetrics.hausdorff_per_class_device(torch.from_numpy(pred), torch.from_numpy(target),
+                                              6, torch.float64).numpy()
+    host = np.stack([jmetrics.hausdorff_per_class(pred, target, 6),
+                     jmetrics.hausdorff_per_class(pred, target, 6, 95)], axis=-1)
+    assert got.dtype == np.float64
+    np.testing.assert_allclose(got, host, rtol=1e-12, atol=0, equal_nan=True)
+
+
 def test_edt_squared_matches_scipy(rng):
     from scipy.ndimage import distance_transform_edt
     mask = rng.random((9, 12, 10)) < 0.03

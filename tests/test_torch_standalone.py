@@ -86,16 +86,21 @@ make_epix2vox_optimizer(epix, 1)
 with torch.no_grad():
     occ = epix(epix2vox_interface_input(torch.rand(1, 4, 16, 16), 2))
 assert occ.shape == (1, 128, 128, 128) and torch.isfinite(occ).all()
+from acquisition_focus_tpu_torch.models.segmentation import SegUnet2D
+seg = SegUnet2D(3, (4, 8)).eval()
+onehot = train.segment_slices(spec, seg, torch.randn(2, 1, 1, 16, 16))
+assert onehot.shape == (2, 1, 3, 16, 16)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('acquisition_focus_tpu', 'jax', 'flax', 'optax'))
+             if m.split('.')[0] in ('acquisition_focus_tpu', 'jax', 'flax', 'optax', 'orbax'))
 assert not bad, bad
 print('ok')
 '''
 
 
 def test_port_stands_alone_with_the_jax_package_blocked():
-    """Every module of the port imports, and one skinny CPU ``train_step`` runs, with
-    any import of ``acquisition_focus_tpu`` refused."""
+    """Every module of the port imports, and one skinny CPU ``train_step`` and a
+    segmenter's ``segment_slices`` run, with any import of ``acquisition_focus_tpu``
+    refused; no jax, flax, optax or orbax module is loaded."""
     torch_threads = 'import torch; torch.set_num_threads(2)\n'
     out = subprocess.run([sys.executable, '-c', torch_threads + STANDALONE],
                          capture_output=True, text=True, timeout=300)

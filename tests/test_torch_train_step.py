@@ -99,12 +99,14 @@ LABEL_OPTIONS = {
 }
 
 
-def run_step_pair(options):
-    """One JAX and one torch train_step from the same params and batch, plus the
-    JAX step's gradients (mean over microbatches, as train_step forms them)."""
+def run_step_pair(options, batch=None, jax_grads=True):
+    """One JAX and one torch train_step from the same params and batch (``None``:
+    ``make_batch`` from BATCH_SEED), plus (``jax_grads``) the JAX step's gradients
+    (mean over microbatches, as train_step forms them)."""
     spec_j = jtrain.StageSpec(**options)
     spec_t = ttrain.StageSpec(**options)
-    batch = make_batch(spec_j, np.random.default_rng(BATCH_SEED))
+    if batch is None:
+        batch = make_batch(spec_j, np.random.default_rng(BATCH_SEED))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
 
     unet_j, atms_j = jtrain.make_models(spec_j)
@@ -115,11 +117,13 @@ def run_step_pair(options):
         return jtrain.forward(spec_j, unet_j, params[0], atms_j, params[1], micro,
                               None, train=True)[0]
 
-    grad_fn = jax.jit(jax.grad(loss_fn))
-    accum = spec_j.num_grad_accum_steps
-    grads = [grad_fn((up, ap), {k: v[i] for k, v in jb.items()}) for i in range(accum)]
-    grads_j = jax.tree_util.tree_map(lambda *g: sum(np.asarray(x) for x in g) / accum,
-                                     *grads)
+    grads_j = None
+    if jax_grads:
+        grad_fn = jax.jit(jax.grad(loss_fn))
+        accum = spec_j.num_grad_accum_steps
+        grads = [grad_fn((up, ap), {k: v[i] for k, v in jb.items()}) for i in range(accum)]
+        grads_j = jax.tree_util.tree_map(lambda *g: sum(np.asarray(x) for x in g) / accum,
+                                         *grads)
 
     r_opt = jopt.make_reconstruction_optimizer(LR, UPE)
     t_opt = jopt.make_transform_optimizer(LR, EPOCHS, UPE)
@@ -295,13 +299,11 @@ def test_stage_spec_fields_match_jax():
 
 @pytest.mark.parametrize('override', [
     dict(atm_remat=True), dict(unet_remat=True), dict(decoder_save_names=('conv_out',)),
-    dict(mesh_shape={'data': 2}), dict(model_type='epix2vox'),
-    dict(rotate_slice_to_min_principle=True),
-    dict(label_slice_type='from-segmented', segment_model_path='segmenter')])
+    dict(mesh_shape={'data': 2}), dict(model_type='epix2vox')])
 def test_unported_options_refused(override):
     """Options whose code is not ported raise instead of running without effect:
-    stage options in make_models, run options (a device mesh, the from-segmented
-    segmenter) in run_dl before it builds anything."""
+    stage options in make_models, run options (a device mesh) in run_dl before it
+    builds anything."""
     with pytest.raises(NotImplementedError):
         if set(override) <= {f.name for f in dataclasses.fields(ttrain.StageSpec)}:
             ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)), 'cpu')
@@ -310,11 +312,13 @@ def test_unported_options_refused(override):
 
 
 @pytest.mark.parametrize('override', [
-    dict(theta_source='cached'), dict(slice_fov_vox=(8, 8, 1))])
+    dict(theta_source='cached'), dict(slice_fov_vox=(8, 8, 1)),
+    dict(rotate_slice_to_min_principle=True)])
 def test_ported_options_build_and_step(override):
     """The options this port once refused: a cached-theta step (thetas from the
-    batch, no locnet, no transform update) and slices upsampled to the hires
-    in-plane grid; each builds and takes a finite step."""
+    batch, no locnet, no transform update), slices upsampled to the hires
+    in-plane grid, and slices turned to their content's min-inertia axis; each
+    builds and takes a finite step."""
     spec = ttrain.StageSpec(**dict(SKINNY, **override))
     unet, atms = ttrain.make_models(spec, 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
