@@ -78,8 +78,8 @@ DEFAULTS = DotDict(
     unet_remat=False,                # True: fully recompute U-Net skip/decoder stages
                                      # (False = policy remat: save bf16 conv outs only)
     decoder_save_names=["conv_out", "conv_in0"],  # decoder remat saves (the JAX
-                                     # package's recompute policy; the port refuses
-                                     # any other value, PARITY.md)
+                                     # package's recompute policy; the port's in
+                                     # models/recompute.py, PARITY.md)
     use_pallas_conv3d='fwd',         # hand-written conv on the full-res decoder
                                      # level: False | 'fwd' | 'fwdN' | 'wg' | 'dx' |
                                      # 'full' (models/hybrid_unet.py)

@@ -12,10 +12,10 @@ training step's augmentation from a generator keyed by (seed, global_idx * 10000
 + step), each evaluation batch's from (seed + 7, global_idx * 10000 + i), and the
 shuffle from an epoch-keyed numpy generator, so a resumed run replays the
 uninterrupted one exactly. From-segmented runs load the frozen segmenter
-(``segment_model_path``, a ``torch.save`` checkpoint) for validation and test; a
-missing checkpoint warns and the run goes on without it, as the JAX runner does.
-Not ported: the device mesh (``mesh_shape``), which raises
-``NotImplementedError``.
+(``segment_model_path``) for validation and test; a missing checkpoint warns and
+the run goes on without it, as the JAX runner does. Every checkpoint path also
+takes the JAX package's orbax directories (``engine/checkpoint.py``). Not ported:
+the device mesh (``mesh_shape``), which raises ``NotImplementedError``.
 """
 
 import dataclasses
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from acquisition_focus_tpu_torch.engine.checkpoint import (
-    checkpoint_exists, load_checkpoint, save_checkpoint)
+    checkpoint_exists, load_checkpoint, load_optimizer, save_checkpoint)
 from acquisition_focus_tpu_torch.engine.config import DEFAULTS, load_config
 from acquisition_focus_tpu_torch.engine.metrics import (
     accumulate_label_scores, hausdorff_per_class, hausdorff_per_class_device,
@@ -182,9 +182,11 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
         ck = load_checkpoint(mdl_chk)
         unet.load_state_dict(ck['unet'])
         atms.load_state_dict(ck['atms'])
-        for (opt, sched), name in ((recon_opt, 'recon'), (trans_opt, 'trans')):
-            opt.load_state_dict(ck[f'{name}_opt'])
-            sched.load_state_dict(ck[f'{name}_sched'])
+        # a JAX checkpoint from before the optimizer states were saved has none
+        if 'recon_opt' in ck:
+            for (opt, sched), module, name in ((recon_opt, unet, 'recon'),
+                                               (trans_opt, atms, 'trans')):
+                load_optimizer(opt, sched, module, ck[f'{name}_opt'], ck[f'{name}_sched'])
         best_quality = float(ck['best_quality'])
         epx_start = int(ck['epoch']) + 1
         print(f"Loaded checkpoint from {mdl_chk} (resuming at epoch {epx_start})")

@@ -1,7 +1,7 @@
 """The frozen prescan segmenter (torch port of
 ``acquisition_focus_tpu/engine/segmenter.py``): the 2D U-Net
-(``models/segmentation/unet2d.py``) loaded from a ``torch.save`` checkpoint, and
-gaussian-weighted sliding-window inference with 2^2 flip test-time augmentation.
+(``models/segmentation/unet2d.py``) loaded from a ``torch.save`` checkpoint or
+the JAX package's orbax directory, and gaussian-weighted sliding-window inference with 2^2 flip test-time augmentation.
 
 The JAX package runs one jitted host call per tile. Here every tile of every slice
 of a volume goes through the network together, in batches of ``max_batch`` tiles
@@ -10,12 +10,8 @@ what else is in its batch, and the blending is the same sums in the same order.
 
 ``make_segment_fn`` returns None when no checkpoint is configured or the configured
 one does not exist (every 'from-gt' configuration). Train a checkpoint with
-``python -m acquisition_focus_tpu_torch.scripts.train_segmenter``; the JAX package's
-orbax checkpoint directories are not readable here (``ROADMAP.md`` queue 1, orbax
-import).
+``python -m acquisition_focus_tpu_torch.scripts.train_segmenter``.
 """
-
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -109,15 +105,10 @@ def _spacing_from(nii_affine_or_spacing):
 
 def load_segmenter(model_path, num_classes, device):
     """The checkpoint's ``SegUnet2D`` in eval mode on ``device``, without
-    gradients; its widths are read from the saved weights. None where no file
-    is at ``model_path``; an orbax directory raises."""
+    gradients; its widths are read from the saved weights. None where no
+    checkpoint is at ``model_path`` (a file, or an orbax directory of the JAX
+    package, imported through ``engine/orbax_import.py``)."""
     from acquisition_focus_tpu_torch.models.segmentation.unet2d import SegUnet2D
-    if Path(model_path).is_dir():
-        raise NotImplementedError(
-            f"{model_path} is a directory (an orbax checkpoint of the JAX package): "
-            "not readable by the port (ROADMAP.md queue 1, orbax import); train a "
-            "torch.save checkpoint with acquisition_focus_tpu_torch.scripts."
-            "train_segmenter")
     if not checkpoint_exists(model_path):
         return None
     state = load_checkpoint(model_path)
@@ -143,7 +134,7 @@ def make_segment_fn(model_path, fold_idx, num_classes=6, extra_permute=False,
     back to the input grid ('nearest'). ``extra_permute`` transposes each output
     slice (the MMWHS axis convention of external segmenters). Returns None without
     a checkpoint at ``model_path``."""
-    if not model_path or not (Path(model_path).is_dir() or checkpoint_exists(model_path)):
+    if not model_path or not checkpoint_exists(model_path):
         return None
     from acquisition_focus_tpu_torch.engine.train import resolve_device
     device = resolve_device(device)

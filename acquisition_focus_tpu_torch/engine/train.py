@@ -46,8 +46,8 @@ from acquisition_focus_tpu_torch.ops.rotations import random_affine_batch
 @dataclasses.dataclass(frozen=True)
 class StageSpec:
     """Static stage description; the same fields as the JAX package's StageSpec
-    (its remat/save-name fields are kept for config compatibility; recompute is
-    not ported, so ``make_models`` refuses any value but the default)."""
+    (``atm_remat``, ``unet_remat`` and ``decoder_save_names`` set the recompute
+    regions as there: ``models/recompute.py``)."""
     n_views: int
     num_classes: int
     n_active_views: int
@@ -101,17 +101,9 @@ EPIX2VOX_TYPES = ('hybrid-EPix2Vox', 'hybrid-Pix2Vox')
 
 
 def _check_ported(spec):
-    missing = [name for name, on in (
-        # an unknown model type: the JAX package builds the hybrid U-Net for it
-        (f"model_type={spec.model_type!r}",
-         spec.model_type not in ('hybrid-unet',) + EPIX2VOX_TYPES),
-        ("atm_remat", spec.atm_remat),
-        ("unet_remat", spec.unet_remat),
-        (f"decoder_save_names={spec.decoder_save_names!r}",
-         tuple(spec.decoder_save_names) != StageSpec.decoder_save_names),
-    ) if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    # an unknown model type: the JAX package builds the hybrid U-Net for it
+    if spec.model_type not in ('hybrid-unet',) + EPIX2VOX_TYPES:
+        raise NotImplementedError(f"not ported yet: model_type={spec.model_type!r}")
 
 
 def resolve_device(device=None):
@@ -137,7 +129,9 @@ def make_models(spec: StageSpec, device=None):
                                 use_epix2vox=spec.model_type == 'hybrid-EPix2Vox')
     else:
         unet = HybridUnet(spec.n_views, spec.num_classes, tuple(spec.base_features),
-                          dtype=spec.dtype, use_pallas_conv=spec.use_pallas_conv3d)
+                          dtype=spec.dtype, use_pallas_conv=spec.use_pallas_conv3d,
+                          remat_skips=spec.unet_remat,
+                          decoder_save_names=tuple(spec.decoder_save_names))
     atms = nn.ModuleList([
         AffineTransformModule(spec.num_classes, spec.optim_method,
                               spec.prescan_fov_vox[0], spec.offset_clip_value,
@@ -189,7 +183,7 @@ def compute_thetas(spec: StageSpec, atms, soft_label, nii_affine, view_affines):
         soft_label.to(spec.dtype), nii_affine, spec.prescan_fov_mm,
         spec.prescan_fov_vox, pre_grid_sample_affine=_fold(view_affines).detach())
     prescan = prescan.reshape((A, B, C) + tuple(spec.prescan_fov_vox))
-    return apply_stacked_atms(atms, prescan, spec.view_train_mask())
+    return apply_stacked_atms(atms, prescan, spec.view_train_mask(), spec.atm_remat)
 
 
 def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affines,

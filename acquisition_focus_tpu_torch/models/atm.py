@@ -10,6 +10,7 @@ JAX package's own ``apply_stacked_atms`` executes them).
 import torch
 import torch.nn as nn
 
+from acquisition_focus_tpu_torch.models import recompute
 from acquisition_focus_tpu_torch.models.localization import LocalizationNet
 from acquisition_focus_tpu_torch.ops.affine import compose
 from acquisition_focus_tpu_torch.ops.rotations import (
@@ -92,17 +93,23 @@ class AffineTransformModule(nn.Module):
                                     self.offset_clip_value, self.zoom_clip_value)
 
 
-def apply_stacked_atms(atms, x_prescans, train_mask=None):
+def apply_stacked_atms(atms, x_prescans, train_mask=None, remat=False):
     """Run the first A views' ATMs: (A, B, C, P, P, P) prescans -> (A, B, 4, 4).
 
     ``train_mask`` (A bools) marks the views whose localization nets train this
     stage; the others run under ``torch.no_grad()``, so no backward graph is built
-    for them (the JAX package's structural stop_gradient)."""
+    for them (the JAX package's structural stop_gradient).
+
+    Each training view's chain is a recompute region, as the JAX package's
+    ``jax.checkpoint`` per view: ``remat`` recomputes the whole chain in
+    backward; otherwise the region keeps its convolutions' outputs and
+    recomputes the float32 norms, activations and pooling between them."""
     thetas = []
     for v in range(x_prescans.shape[0]):
         if train_mask is not None and not bool(train_mask[v]):
             with torch.no_grad():
                 thetas.append(atms[v](x_prescans[v]))
         else:
-            thetas.append(atms[v](x_prescans[v]))
+            thetas.append(recompute.region(
+                atms[v], x_prescans[v], save_ops=None if remat else recompute.CONV_OUT))
     return torch.stack(thetas)

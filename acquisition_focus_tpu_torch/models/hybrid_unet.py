@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from acquisition_focus_tpu_torch.models import recompute
 from acquisition_focus_tpu_torch.models.localization import compute_autocast, leaky_relu
 from acquisition_focus_tpu_torch.ops.affine import affine_zooms, scale_affine_columns
 from acquisition_focus_tpu_torch.ops.kernels.conv3d import conv3d, supports_conv3d
@@ -127,10 +128,13 @@ class SkipConnector(nn.Module):
 
 
 class DecoderStage(nn.Module):
-    """Upsample, concat the skip re-embedded into 3D, two 3^3 conv blocks."""
+    """Upsample, concat the skip re-embedded into 3D, two 3^3 conv blocks;
+    ``keep_conv_in``: the convs keep their inputs for the weight gradient inside a
+    recompute region (the JAX package's ``'conv_in{level}'`` names)."""
 
-    def __init__(self, ci, co, use_kernel=False):
+    def __init__(self, ci, co, use_kernel=False, keep_conv_in=False):
         super().__init__()
+        self.keep_conv_in = keep_conv_in
         self.up = nn.ConvTranspose3d(ci, co, 2, stride=2)
         self.a_conv = Conv3x3x3(2 * co, co, use_kernel)
         self.a_norm = nn.InstanceNorm3d(co, eps=1e-5, affine=True)
@@ -140,23 +144,53 @@ class DecoderStage(nn.Module):
     def forward(self, y, embed_skip):
         """``embed_skip(y_up)``: ``torch.cat([y_up, this level's skip in 3D], 1)``."""
         y = embed_skip(self.up(y))
-        y = _norm_act(self.a_norm, self.a_conv(y))
-        return _norm_act(self.b_norm, self.b_conv(y))
+        with recompute.keep_residuals(self.keep_conv_in):
+            y = self.a_conv(y)
+        y = _norm_act(self.a_norm, y)
+        with recompute.keep_residuals(self.keep_conv_in):
+            y = self.b_conv(y)
+        return _norm_act(self.b_norm, y)
+
+
+def decoder_save_levels(decoder_save_names, n_levels):
+    """The JAX package's ``decoder_save_names`` check: a subset of 'conv_out',
+    'conv_in' (every level) and 'conv_in{level}'; raises ValueError otherwise.
+    Returns the levels whose conv inputs are kept."""
+    valid = {'conv_out', 'conv_in'} | {f'conv_in{s}' for s in range(n_levels)}
+    unknown = set(decoder_save_names) - valid
+    if unknown:
+        raise ValueError(f"unknown decoder_save_names {sorted(unknown)}: expected "
+                         f"a subset of {sorted(valid)}")
+    return {s for s in range(n_levels)
+            if 'conv_in' in decoder_save_names or f'conv_in{s}' in decoder_save_names}
 
 
 class HybridUnet(nn.Module):
+    """Recompute as the JAX module's: every decoder stage is a recompute region
+    (``models/recompute.py``). ``remat_skips``: the stages and the deepest skip
+    re-embedding run again whole in backward; otherwise the stages keep their
+    convolutions' outputs (if ``'conv_out'`` is in ``decoder_save_names``), K1f's
+    concat buffer, and the conv inputs of the named levels, and recompute the
+    norms, activations and concats."""
+
     def __init__(self, n_views, num_classes, base_features=BASE_FEATURES,
-                 dtype=torch.float32, use_pallas_conv=False):
+                 dtype=torch.float32, use_pallas_conv=False, remat_skips=True,
+                 decoder_save_names=('conv_out',)):
         super().__init__()
         self.dtype = dtype
+        self.remat_skips = remat_skips
         feats = [n_views * f for f in base_features]
         ins = [n_views * num_classes] + feats[:-1]
+        keep_in = set() if remat_skips else decoder_save_levels(decoder_save_names,
+                                                                len(feats) - 1)
+        self.save_ops = None if remat_skips else recompute.SKIP | (
+            recompute.CONV_OUT if 'conv_out' in decoder_save_names else frozenset())
         self.encoder = nn.ModuleList([
             EncoderStage(ci, co, 1 if s == 0 else 2, n_views)
             for s, (ci, co) in enumerate(zip(ins, feats))])
         self.skip_connector = SkipConnector(n_views)
         self.decoder = nn.ModuleList([
-            DecoderStage(feats[s + 1], feats[s], use_pallas_conv)
+            DecoderStage(feats[s + 1], feats[s], use_pallas_conv, s in keep_in)
             for s in range(len(feats) - 1)])
         self.seg_head = nn.Conv3d(feats[0], num_classes, 1)
 
@@ -168,8 +202,13 @@ class HybridUnet(nn.Module):
                 skips.append(x)
             # each level's skip is re-embedded where the decoder takes it, so the
             # six 3D skip volumes never live side by side
-            y = self.skip_connector(skips[-1], grid_affines)
+            if self.remat_skips:
+                y = recompute.region(self.skip_connector, skips[-1], grid_affines)
+            else:
+                y = self.skip_connector(skips[-1], grid_affines)
             for s in range(len(self.decoder) - 1, -1, -1):
-                y = self.decoder[s](y, functools.partial(self.skip_connector, skips[s],
-                                                         grid_affines))
+                y = recompute.region(
+                    self.decoder[s], y,
+                    functools.partial(self.skip_connector, skips[s], grid_affines),
+                    save_ops=self.save_ops)
         return self.seg_head(y.float())

@@ -127,7 +127,12 @@ def conv3d_wgrad(x, g):
     return conv3d_wgrad_cuda(x.contiguous(), g.contiguous())
 
 
-def _forward(x, weight, bias, count_as='conv3d_fwd'):
+@torch.library.custom_op('afocus::conv3d_fwd', mutates_args=())
+def conv3d_fwd_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  count_as: str) -> torch.Tensor:
+    """K3 (CUDA) or its plain version (CPU) as one dispatcher op, so that a
+    recompute region's save policy (``models/recompute.py``) sees it and can keep
+    its output instead of launching it again in backward."""
     if not x.is_cuda:
         return F.conv3d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
     return conv3d_fwd_cuda(x, weight, bias, count_as)
@@ -138,7 +143,7 @@ class _Conv3d(torch.autograd.Function):
     def forward(ctx, x, weight, bias, kernel_dx, kernel_dw):
         ctx.save_for_backward(x, weight)
         ctx.kernel_dx, ctx.kernel_dw = kernel_dx, kernel_dw
-        return _forward(x, weight, bias)
+        return conv3d_fwd_op(x, weight, bias, 'conv3d_fwd')
 
     @staticmethod
     def backward(ctx, grad):
@@ -149,8 +154,9 @@ class _Conv3d(torch.autograd.Function):
         w = weight.to(x.dtype)
         w_t = w.flip(2, 3, 4).transpose(0, 1)
         if ctx.kernel_dx and supports_conv3d(grad.shape, w_t.shape):
-            dx = _forward(grad, w_t, grad.new_zeros(w_t.shape[0], dtype=torch.float32),
-                          'conv3d_dx')
+            dx = conv3d_fwd_op(grad, w_t,
+                               grad.new_zeros(w_t.shape[0], dtype=torch.float32),
+                               'conv3d_dx')
         else:
             dx = torch.nn.grad.conv3d_input(x.shape, w, grad, padding=1)
         if ctx.kernel_dw and supports_conv3d(x.shape, w.shape):

@@ -13,6 +13,7 @@ autograd gradient.
 """
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -91,6 +92,22 @@ def plane_resample_bwd(slices, coefs, grad, c_off=0):
     return d_slices, d_coefs
 
 
+@torch.library.custom_op('afocus::skip_concat_fwd', mutates_args=())
+def skip_concat_fwd_op(y: Optional[torch.Tensor], slices: torch.Tensor,
+                       coefs: torch.Tensor, out_spat: int) -> torch.Tensor:
+    """cat([y, re-embedded views], 1) in a new buffer (``y`` None: the views
+    alone) with one K1f launch, as one dispatcher op: a recompute region's save
+    policy (``models/recompute.py``) keeps its output instead of launching K1f
+    again in backward."""
+    out, co = None, 0
+    if y is not None:
+        co = y.shape[1]
+        out = torch.empty((y.shape[0], co + slices.shape[1]) + (out_spat,) * 3,
+                          dtype=y.dtype, device=y.device)
+        out[:, :co].copy_(y)
+    return plane_resample_fwd(slices, coefs, out_spat, out, co)
+
+
 class _PlaneResample(torch.autograd.Function):
     """cat([y, re-embedded views], 1) in one buffer (``y`` None: the views alone),
     one K1f launch forward, one K1b launch backward reading the buffer's
@@ -100,15 +117,9 @@ class _PlaneResample(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, y, slices, coefs, out_spat):
-        out, co = None, 0
-        if y is not None:
-            co = y.shape[1]
-            out = torch.empty((y.shape[0], co + slices.shape[1]) + (out_spat,) * 3,
-                              dtype=y.dtype, device=y.device)
-            out[:, :co].copy_(y)
         ctx.save_for_backward(slices, coefs)
-        ctx.co = co
-        return plane_resample_fwd(slices, coefs, out_spat, out, co)
+        ctx.co = 0 if y is None else y.shape[1]
+        return skip_concat_fwd_op(y, slices, coefs, out_spat)
 
     @staticmethod
     def backward(ctx, grad):

@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 1. Device: the card's name and power limit, torch and CUDA versions; build the CUDA
-   kernels from ``acquisition_focus_tpu_torch/csrc`` (nvcc, sm_90a) and time it.
+   kernels from ``acquisition_focus_tpu_torch/csrc`` (nvcc, sm_90a) and time it. The
+   SM clock, its maximum, temperature and power draw at the start, after the
+   kernel checks and at the end.
 2. Kernels at the main path's shapes: each kernel against its plain PyTorch
    version on the same CUDA tensors, in bfloat16 and float32 (TF32 off), with the
    error against a stated tolerance and both times (CUDA events, after warm-up):
@@ -28,6 +30,16 @@
    microbatch), then the same 4 steps from the same weights, batch and
    generator seed with ``'full'`` (K3 also as the input gradient, K4 as the weight
    gradient). Step 0's loss must agree between the two.
+   Then the recompute settings (``atm_remat``, ``unet_remat``, both,
+   ``decoder_save_names`` ('conv_out',) and ('conv_out', 'conv_in'), against the
+   default policy) on the same step under ``'fwd'``: the first microbatch's
+   gradients against the default's (and the default's against a second run of
+   itself) within RECOMPUTE_GRAD_TOL of each leaf's largest magnitude; 1 warm-up
+   and 3 timed steps each: s/step, peak memory, launches per step (the default
+   policy must launch K3 4, K1f and K1b 12 and K2 2 times a step, as with no
+   recompute), step 0's loss within 1e-6 (rel.) of the default's; the peak under
+   both remats below the default policy's, and that below the save-all step's.
+   Then one step at batch 8 x accum 1 under both remats.
 4. The dataset build: N_CASES (8) phantom cases written as NIfTI files at 128^3, 1.5 mm,
    built by ``load_or_build`` on the card (seconds per case); the 2 test cases
    built again on the CPU with the card's centroid affines injected: labels equal
@@ -656,11 +668,11 @@ def check_from_segmented_kernels(chk, rng):
     torch.cuda.empty_cache()
 
 
-def phantom_batch(spec, device):
-    """(accum, B, ...) batch of phantom labels: 4 samples at the hires grid, their
-    NIfTI affines, identity view affines (as the JAX package's bench)."""
+def phantom_batch(spec, device, B=2):
+    """(accum, B, ...) batch of phantom labels: accum x B samples at the hires grid,
+    their NIfTI affines, identity view affines (as the JAX package's bench)."""
     from acquisition_focus_tpu_torch.data import make_heart_phantom
-    accum, B = spec.num_grad_accum_steps, 2
+    accum = spec.num_grad_accum_steps
     S = tuple(spec.hires_fov_vox)
     spacing = tuple(m / v for m, v in zip(spec.hires_fov_mm, spec.hires_fov_vox))
     samples = [make_heart_phantom(shape=S, seed=i, spacing=spacing)
@@ -688,6 +700,9 @@ def build_step(spec, device, seed=0):
                                      updates_per_epoch=10)
     return unet, atms, recon, trans
 
+
+SAVE_ALL_PEAK = 16_985_350_144  # B: the default step's peak with no recompute region,
+                                # every residual kept (PERF.md)
 
 STEP_KERNELS = {
     'fwd': ('plane_resample_fwd', 'plane_resample_bwd', 'volume_resample', 'conv3d_fwd'),
@@ -775,6 +790,144 @@ def compare_modes(fwd, full):
             raise AssertionError(f"'full' step {step} loss {b} vs 'fwd' {a}: rel {rel:.3e}")
     log(f"  'fwd' {fwd['s_step']:.4f} s/step, peak {fwd['peak']} B; 'full' "
         f"{full['s_step']:.4f} s/step, peak {full['peak']} B")
+
+
+RECOMPUTE_MODES = (
+    ('default', {}),
+    ('atm_remat', dict(atm_remat=True)),
+    ('unet_remat', dict(unet_remat=True)),
+    ('both', dict(atm_remat=True, unet_remat=True)),
+    ("('conv_out',)", dict(decoder_save_names=['conv_out'])),
+    ("('conv_out','conv_in')", dict(decoder_save_names=['conv_out', 'conv_in'])),
+)
+RECOMPUTE_GRAD_TOL = 2e-2   # max |grad - default's| per leaf, over the leaf's max |grad|
+                            # (pre-norm conv biases, exactly 0: over the largest leaf's)
+
+
+def first_microbatch_grads(spec, unet, atms, batch):
+    """Every parameter gradient (on the host) after the first microbatch of a step,
+    as ``train_step`` forms it (loss / accum), from augmentation seed 0; no update."""
+    from acquisition_focus_tpu_torch.engine import train
+    micro = {k: v[0] for k, v in batch.items()}
+    loss, _ = train.forward(spec, unet, atms, micro, torch.Generator().manual_seed(0))
+    (loss / spec.num_grad_accum_steps).backward()
+    grads = {}
+    for prefix, m in (('unet.', unet), ('atms.', atms)):
+        for name, p in m.named_parameters():
+            if p.grad is not None:
+                grads[prefix + name] = p.grad.float().cpu()
+            p.grad = None
+    return grads
+
+
+def grad_deviation(grads, ref):
+    """The largest per-leaf max |grad - ref| over the leaf's max |ref| (pre-norm
+    conv biases, whose exact gradient is 0: over the largest leaf's), and its leaf."""
+    if grads.keys() != ref.keys():
+        raise AssertionError(f"gradient leaves differ: {sorted(grads.keys() ^ ref.keys())}")
+    top = max(float(g.abs().max()) for g in ref.values())
+    worst = (-1.0, '')
+    for name, g in grads.items():
+        pre_norm_bias = name.endswith('conv.bias') or (
+            'locnet.convnet' in name and name.endswith('.bias'))
+        scale = top if pre_norm_bias else max(float(ref[name].abs().max()), 1e-30)
+        worst = max(worst, (float((g - ref[name]).abs().max()) / scale, name))
+    return worst
+
+
+def run_recompute():
+    """The default step at full width ('fwd') under each recompute setting of
+    RECOMPUTE_MODES, from the same weights, batch and generator seed: the first
+    microbatch's gradients against the default's (and the default's against a
+    second run of itself), then 1 warm-up and 3 timed steps: s/step, peak memory,
+    launches per step, step 0's loss against the default's. Then one step at
+    batch 8 x accum 1 under atm_remat + unet_remat."""
+    from acquisition_focus_tpu_torch.engine import train
+    from acquisition_focus_tpu_torch.engine.runner import DEFAULTS, spec_from_config
+    from acquisition_focus_tpu_torch.ops.kernels import _lib
+    results, ref = {}, None
+    for name, opts in RECOMPUTE_MODES:
+        spec = spec_from_config(dict(DEFAULTS, use_pallas_conv3d='fwd', **opts), 6, 3)
+        unet, atms, recon, trans = build_step(spec, 'cuda')
+        batch = phantom_batch(spec, 'cuda')
+        grads = first_microbatch_grads(spec, unet, atms, batch)
+        if ref is None:
+            ref = grads
+            dev = grad_deviation(first_microbatch_grads(spec, unet, atms, batch), ref)
+            log(f"  recompute [default, run twice]: first-microbatch gradient deviation "
+                f"{dev[0]:.3e} ({dev[1]})")
+        else:
+            dev = grad_deviation(grads, ref)
+        del grads
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _lib.reset_launch_counts()
+        gen = torch.Generator().manual_seed(0)
+        times, losses = [], []
+        for step in range(STEPS):
+            t0 = time.perf_counter()
+            loss = float(train.train_step(spec, unet, atms, recon, trans, batch, gen)['loss'])
+            torch.cuda.synchronize()
+            if step:
+                times.append(time.perf_counter() - t0)
+            if not np.isfinite(loss):
+                raise AssertionError(f"recompute [{name}] step {step}: loss {loss}")
+            losses.append(loss)
+        r = {'s_step': sum(times) / len(times), 'peak': torch.cuda.max_memory_allocated(),
+             'launches_per_step': {k: v / STEPS for k, v in _lib.LAUNCHES.items() if v},
+             'loss0': losses[0], 'grad_dev': dev}
+        results[name] = r
+        base = results['default']
+        rel = abs(r['loss0'] - base['loss0']) / abs(base['loss0'])
+        log(f"  recompute [{name}]: {r['s_step']:.4f} s/step (mean of {len(times)}), peak "
+            f"{r['peak']} B ({r['peak'] / 2**30:.2f} GiB), launches per step "
+            f"{r['launches_per_step']}, step 0 loss {r['loss0']!r} (rel diff to the "
+            f"default's {rel:.3e}), first-microbatch gradient deviation {dev[0]:.3e} "
+            f"({dev[1]})")
+        if not rel <= 1e-6:
+            raise AssertionError(f"recompute [{name}]: step 0 loss {r['loss0']} vs the "
+                                 f"default's {base['loss0']}")
+        if not dev[0] <= RECOMPUTE_GRAD_TOL:
+            raise AssertionError(f"recompute [{name}]: gradient of {dev[1]} deviates "
+                                 f"{dev[0]:.3e} > {RECOMPUTE_GRAD_TOL} from the default's")
+        del unet, atms, recon, trans, batch
+        torch.cuda.empty_cache()
+
+    # the policy launches each kernel forward once: the counts of a 'fwd' step with
+    # no recompute
+    per_step = results['default']['launches_per_step']
+    want = {'conv3d_fwd': 4, 'plane_resample_fwd': 12, 'plane_resample_bwd': 12,
+            'volume_resample': 2}
+    if per_step != want:
+        raise AssertionError(f"default policy launches per step {per_step}, expected {want}")
+    if not results['both']['peak'] < results['default']['peak'] < SAVE_ALL_PEAK:
+        raise AssertionError(f"peak memory: both remats {results['both']['peak']} B, "
+                             f"default policy {results['default']['peak']} B, save-all "
+                             f"{SAVE_ALL_PEAK} B: expected increasing")
+
+    spec = spec_from_config(dict(DEFAULTS, use_pallas_conv3d='fwd', atm_remat=True,
+                                 unet_remat=True, num_grad_accum_steps=1), 6, 3)
+    unet, atms, recon, trans = build_step(spec, 'cuda')
+    batch = phantom_batch(spec, 'cuda', B=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator().manual_seed(0)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss = float(train.train_step(spec, unet, atms, recon, trans, batch, gen)['loss'])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not np.isfinite(loss):
+            raise AssertionError(f"batch 8 x accum 1 step: loss {loss}")
+    results['batch8'] = {'s_step': times[-1], 'peak': torch.cuda.max_memory_allocated()}
+    log(f"  recompute [both, batch 8 x accum 1]: {times[-1]:.4f} s/step (second step; "
+        f"first {times[0]:.4f} s), peak {results['batch8']['peak']} B "
+        f"({results['batch8']['peak'] / 2**30:.2f} GiB), loss {loss!r}")
+    del unet, atms, recon, trans, batch
+    torch.cuda.empty_cache()
+    return results
 
 
 def host_s(fn, calls=3):
@@ -1441,6 +1594,14 @@ def run_from_segmented(tmp, data):
             'reference': ref}
 
 
+def log_clocks(when):
+    """The card's SM clock (and its maximum), temperature and power draw: a card
+    running below its clock moves every compute-bound time of the run."""
+    log(f"clocks {when}: " + subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,clocks.max.sm,temperature.gpu,power.draw',
+         '--format=csv,noheader'], capture_output=True, text=True, check=True).stdout.strip())
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1462,6 +1623,7 @@ def main():
     log(f"kernel build + load: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {' '.join(_lib.NVCC_FLAGS)})")
 
+    log_clocks('at the start')
     rng = np.random.default_rng(0)
     chk = Checker()
     check_volume_resample(chk, rng)
@@ -1472,10 +1634,12 @@ def main():
     check_conv3d_grads(chk)
     check_from_segmented_kernels(chk, np.random.default_rng(4))
     torch.cuda.empty_cache()
+    log_clocks('after the kernel checks')
 
     fwd = run_steps('fwd')
     full = run_steps('full')
     compare_modes(fwd, full)
+    remat = run_recompute()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
         data = run_build(Path(tmp))
         launches = run_sweep(Path(tmp), data)
@@ -1505,8 +1669,10 @@ def main():
                 'launches_by_path': {'sweep': launches[name],
                                      'epix2vox_sweep': epix_launches[name],
                                      'from_segmented_sweep': fs['launches'][name]},
-                'launches_per_step': {m: r['launches'][name] / STEPS
-                                      for m, r in (('fwd', fwd), ('full', full))},
+                'launches_per_step': {
+                    **{m: r['launches'][name] / STEPS for m, r in (('fwd', fwd),
+                                                                    ('full', full))},
+                    'fwd_unet_remat': remat['unet_remat']['launches_per_step'].get(name, 0)},
                 'max_abs_err': chk.rows[name]['max_abs_err'],
                 'ms': chk.rows[name]['ms'], 'plain_ms': chk.rows[name]['plain_ms'],
                 'bound_ms': chk.rows[name]['bound_ms'],
@@ -1531,10 +1697,15 @@ def main():
     log("(E)Pix2Vox s/step at batch 1 x accum 4, 2 views, 128^3: " + "; ".join(
         f"{mt} TF32 {'on' if tf32 else 'off'} {r['s_step']:.4f} s, peak {r['peak']} B"
         for (mt, tf32), r in epix.items()))
+    log("recompute ('fwd', batch 2 x accum 2): " + "; ".join(
+        f"{m} {remat[m]['s_step']:.4f} s/step, peak {remat[m]['peak']} B"
+        for m, _ in RECOMPUTE_MODES) + f"; both at batch 8 x accum 1 "
+        f"{remat['batch8']['s_step']:.4f} s/step, peak {remat['batch8']['peak']} B")
     log(f"from-segmented: segmenter {fs['segmenter']['s_step']:.4f} s/step, final loss "
         f"{fs['segmenter']['final_loss']:.4f}; build {fs['build']['s_per_case']:.3f} s per "
         f"case; CLI sweep {fs['sweep_s']:.1f} s; cuSOLVER sign flips "
         f"{fs['reference']['cusolver_sign_flips']} of {fs['reference']['n_slices']}")
+    log_clocks('at the end')
     log(smi)
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

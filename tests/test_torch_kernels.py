@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.ops.kernels import _lib, affine_coefficients
-from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3
+from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3, HybridUnet
 from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
     conv3d, conv3d_fwd_cuda, conv3d_wgrad, conv3d_wgrad_cuda, kernel_weights,
     supports_conv3d)
@@ -891,3 +891,27 @@ def test_launch_counts(cuda):
     conv3d(x, w, torch.zeros(3, device=cuda), True, True).sum().backward()
     assert (_lib.LAUNCHES['conv3d_fwd'], _lib.LAUNCHES['conv3d_dx'],
             _lib.LAUNCHES['conv3d_wgrad']) == (2, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('unet_remat', [False, True])
+def test_kernel_launches_under_recompute(cuda, unet_remat):
+    """A narrow U-Net at 128^3 in bf16 on the card, forward and backward: under
+    the default recompute policy K1f launches once per level and K3 once per
+    full-resolution conv, as with no recompute (the policy keeps their outputs);
+    under unet_remat the stages and the deepest re-embedding run again, so both
+    launch twice. K1b launches once per level either way."""
+    torch.manual_seed(0)
+    n_levels = 3
+    unet = HybridUnet(3, 2, base_features=(4, 8, 8), dtype=torch.bfloat16,
+                      use_pallas_conv='fwd', remat_skips=unet_remat,
+                      decoder_save_names=('conv_out', 'conv_in0')).to(cuda)
+    x = torch.rand(1, 6, 128, 128, device=cuda)
+    aff = torch.eye(4, device=cuda).expand(3, 1, 4, 4).contiguous()
+    _lib.reset_launch_counts()
+    unet(x, aff).float().square().mean().backward()
+    torch.cuda.synchronize()
+    times = 2 if unet_remat else 1
+    assert _lib.LAUNCHES['plane_resample_fwd'] == times * n_levels
+    assert _lib.LAUNCHES['plane_resample_bwd'] == n_levels
+    assert _lib.LAUNCHES['conv3d_fwd'] == times * 2

@@ -215,10 +215,17 @@ def test_make_segment_fn_matches_jax(segmenters, spacing, permute):
 
 
 def test_make_segment_fn_without_a_checkpoint(tmp_path, segmenters):
+    """No checkpoint configured or none at the path: None. The JAX package's
+    orbax directory loads (through ``engine/orbax_import.py``) the weights of the
+    ``torch.save`` file made from the same params."""
     assert tseg.make_segment_fn(None, 0) is None
     assert tseg.make_segment_fn(str(tmp_path / 'missing.pt'), 0) is None
-    with pytest.raises(NotImplementedError, match='orbax'):
-        tseg.make_segment_fn(segmenters['jax'], 0, device='cpu')
+    from_orbax = tseg.load_segmenter(segmenters['jax'], 6, 'cpu')
+    from_file = tseg.load_segmenter(segmenters['torch'], 6, 'cpu')
+    ref = from_file.state_dict()
+    assert from_orbax.state_dict().keys() == ref.keys()
+    for k, v in from_orbax.state_dict().items():
+        assert torch.equal(v, ref[k]), k
 
 
 def test_spacing_from_matches_jax():

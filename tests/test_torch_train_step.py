@@ -298,7 +298,6 @@ def test_stage_spec_fields_match_jax():
 
 
 @pytest.mark.parametrize('override', [
-    dict(atm_remat=True), dict(unet_remat=True), dict(decoder_save_names=('conv_out',)),
     dict(mesh_shape={'data': 2}), dict(model_type='epix2vox')])
 def test_unported_options_refused(override):
     """Options whose code is not ported raise instead of running without effect:
@@ -313,12 +312,14 @@ def test_unported_options_refused(override):
 
 @pytest.mark.parametrize('override', [
     dict(theta_source='cached'), dict(slice_fov_vox=(8, 8, 1)),
-    dict(rotate_slice_to_min_principle=True)])
+    dict(rotate_slice_to_min_principle=True), dict(atm_remat=True), dict(unet_remat=True),
+    dict(decoder_save_names=('conv_out',))])
 def test_ported_options_build_and_step(override):
     """The options this port once refused: a cached-theta step (thetas from the
     batch, no locnet, no transform update), slices upsampled to the hires
-    in-plane grid, and slices turned to their content's min-inertia axis; each
-    builds and takes a finite step."""
+    in-plane grid, slices turned to their content's min-inertia axis, and the
+    recompute switches (``test_torch_recompute.py``); each builds and takes a
+    finite step."""
     spec = ttrain.StageSpec(**dict(SKINNY, **override))
     unet, atms = ttrain.make_models(spec, 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
