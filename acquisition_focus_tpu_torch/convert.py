@@ -139,3 +139,13 @@ def load_flax_params(unet, atms, unet_params, atm_params):
                          else unet_state_dict(unet_params))
     for module, sd in zip(atms, atm_state_dicts(atm_params)):
         module.load_state_dict(sd)
+
+
+def load_flax_params_sharded(unet, atms, unet_params, atm_params, split, mesh):
+    """:func:`load_flax_params` into a hybrid U-Net already split over a mesh's
+    'model' axis (``parallel.shard_params``; ``split`` is what it returned): the
+    converted full params are sliced to this rank's share."""
+    from acquisition_focus_tpu_torch.engine.checkpoint import load_sharded_state
+    load_sharded_state(unet, unet_state_dict(unet_params), split, mesh)
+    for module, sd in zip(atms, atm_state_dicts(atm_params)):
+        module.load_state_dict(sd)

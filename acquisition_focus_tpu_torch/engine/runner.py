@@ -14,8 +14,16 @@ shuffle from an epoch-keyed numpy generator, so a resumed run replays the
 uninterrupted one exactly. From-segmented runs load the frozen segmenter
 (``segment_model_path``) for validation and test; a missing checkpoint warns and
 the run goes on without it, as the JAX runner does. Every checkpoint path also
-takes the JAX package's orbax directories (``engine/checkpoint.py``). Not ported:
-the device mesh (``mesh_shape``), which raises ``NotImplementedError``.
+takes the JAX package's orbax directories (``engine/checkpoint.py``).
+
+A ``mesh_shape`` runs the step on a device mesh (``parallel/mesh.py``) in a process
+group of one process per device (``main.py`` starts them): the batch split over
+'data', the U-Net's features over 'model'. Evaluation batches whose size the
+'data' axis does not divide (``val_batch_size=1``), ``theta_pass`` and the heavy
+metrics run replicated on every rank; rank 0 alone logs and writes metrics,
+artifacts and checkpoints, which keep the one-device format (the slices gathered
+to full tensors on save, sliced again on load). Not ported: (E)Pix2Vox under a
+mesh, which raises ``NotImplementedError``.
 """
 
 import dataclasses
@@ -27,7 +35,8 @@ import numpy as np
 import torch
 
 from acquisition_focus_tpu_torch.engine.checkpoint import (
-    checkpoint_exists, load_checkpoint, load_optimizer, save_checkpoint)
+    checkpoint_exists, gather_module_state, gather_optimizer_state, load_checkpoint,
+    load_optimizer, save_checkpoint)
 from acquisition_focus_tpu_torch.engine.config import DEFAULTS, load_config
 from acquisition_focus_tpu_torch.engine.metrics import (
     accumulate_label_scores, hausdorff_per_class, hausdorff_per_class_device,
@@ -39,6 +48,9 @@ from acquisition_focus_tpu_torch.engine.train import (
     theta_pass, train_step)
 from acquisition_focus_tpu_torch.geometry.clinical_views import get_class_volumes
 from acquisition_focus_tpu_torch.ops.affine import affine_zooms
+from acquisition_focus_tpu_torch.parallel.mesh import (
+    barrier, broadcast_scalar, is_main_process, make_mesh, mesh_summary, shard_batch,
+    shard_opt_state, shard_params)
 from acquisition_focus_tpu_torch.utils.logging import RunLogger, get_global_idx
 
 __all__ = ['DEFAULTS', 'load_config', 'spec_from_config', 'run_dl']
@@ -86,9 +98,13 @@ def spec_from_config(config, num_classes, n_active_views, phase='train'):
 
 
 def check_ported_config(config):
-    """Raise for run options whose code is not ported: a device mesh."""
-    if config.get('mesh_shape') is not None:
-        raise NotImplementedError(f"not ported yet: mesh_shape={config['mesh_shape']!r}")
+    """Raise for run options whose code is not ported: (E)Pix2Vox under a device
+    mesh (its batch statistics would have to be taken over the global batch,
+    ``models/epix2vox.py::BatchNorm``; ``ROADMAP.md`` queue 1)."""
+    if config.get('mesh_shape') and config.get('model_type') in EPIX2VOX_TYPES:
+        raise NotImplementedError(
+            f"not ported yet: model_type={config['model_type']!r} under "
+            f"mesh_shape={config['mesh_shape']!r} (see ROADMAP.md, queue 1)")
 
 
 def n_active_views_for(config):
@@ -102,6 +118,16 @@ def seeded_generator(seed, index):
     ``index`` into ``jax.random.key(seed)``."""
     state = np.random.SeedSequence([int(seed), int(index)]).generate_state(1, np.uint64)
     return torch.Generator().manual_seed(int(state[0]))
+
+
+class _NullLogger:
+    """The logger of a rank other than 0: logs nothing."""
+    dir = None
+
+    def log(self, *args, **kwargs):
+        pass
+
+    log_label_metrics = log_oa_metrics = finish = log
 
 
 def _to_device(batch, device, image=False):
@@ -138,16 +164,20 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
     """Train one stage on one fold. Returns the best save path (if any).
 
     ``device``: where the models and batches live; ``None`` is the card, and
-    without CUDA only an explicit ``device='cpu'`` runs."""
+    without CUDA only an explicit ``device='cpu'`` runs. Under a ``mesh_shape``
+    every rank of the process group calls it; each takes its mesh device."""
     check_ported_config(config)
-    device = resolve_device(device)
+    mesh = make_mesh(config.get('mesh_shape'))
+    device = mesh.device if mesh is not None else resolve_device(device)
+    main_rank = mesh is None or is_main_process()
     fold_idx, (train_idxs, val_idxs) = fold_properties
     num_classes = len(training_dataset.label_tags) if training_dataset \
         else len(test_dataset.label_tags)
     n_active = n_active_views_for(config)
 
     logger = RunLogger(config.get('log_dir', 'data/runs'), run_name,
-                       config.get('wandb_mode', 'disabled'), config)
+                       config.get('wandb_mode', 'disabled'), config) if main_rank \
+        else _NullLogger()
 
     specs = {p: spec_from_config(config, num_classes, n_active, p)
              for p in ('train', 'val', 'test')}
@@ -157,8 +187,9 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
     init_params(unet, atms, torch.Generator().manual_seed(seed))
 
     n_params = sum(p.numel() for p in unet.parameters())
-    print(f"Reconstruction model params: {n_params / 1e6:.2f}M; "
-          f"stage active views: {n_active}/{spec.n_views}")
+    log = print if main_rank else (lambda *a, **k: None)
+    log(f"Reconstruction model params: {n_params / 1e6:.2f}M; "
+        f"stage active views: {n_active}/{spec.n_views}")
 
     # optimizers (fresh per stage)
     B = config['batch_size']
@@ -189,11 +220,33 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
                 load_optimizer(opt, sched, module, ck[f'{name}_opt'], ck[f'{name}_sched'])
         best_quality = float(ck['best_quality'])
         epx_start = int(ck['epoch']) + 1
-        print(f"Loaded checkpoint from {mdl_chk} (resuming at epoch {epx_start})")
+        log(f"Loaded checkpoint from {mdl_chk} (resuming at epoch {epx_start})")
     trans_chk = config.get('transform_model_checkpoint_path')
     if trans_chk and checkpoint_exists(trans_chk):
         atms.load_state_dict(load_checkpoint(trans_chk)['atms'])
-        print(f"Loaded transform checkpoint from {trans_chk}")
+        log(f"Loaded transform checkpoint from {trans_chk}")
+
+    # the mesh, set up on the restored full state as in the JAX runner: the
+    # U-Net's features split over 'model' with AdamW's moments, the ATMs and the
+    # transform optimizer replicated
+    split = {}
+    if mesh is not None:
+        if B % mesh.axis_size('data'):
+            raise ValueError(f"batch_size {B} must be divisible by the data mesh axis "
+                             f"{mesh.axis_size('data')}")
+        split = shard_params(unet, atms, mesh)
+        shard_opt_state(recon_opt[0], unet, split, mesh)
+        log(f"Training on {mesh_summary(mesh)}")
+
+    def put_batch(batch, train, image=False):
+        """(batch on the device, its data shard): split over 'data' where the
+        batch size divides it, replicated otherwise."""
+        shard = None
+        if mesh is not None and 'data' in mesh.shape:
+            if batch['label'].shape[1 if train else 0] % mesh.axis_size('data') == 0:
+                batch = shard_batch(batch, mesh, train)
+                shard = (mesh.axis_index('data'), mesh.axis_size('data'))
+        return _to_device(batch, device, image), shard
 
     best_save_path = None
 
@@ -212,7 +265,7 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
 
     def refresh_theta_cache():
         for t_sel, t_batch in training_dataset.iterate_eval_batches(train_idxs, 1):
-            th = theta_pass(specs['train'], atms, _to_device(t_batch, device))
+            th = theta_pass(specs['train'], atms, put_batch(t_batch, False)[0])
             theta_cache[t_sel[0]] = th[:, 0].cpu().numpy()   # (A, 4, 4)
 
     def thetas_for(sel, accum_, B_):
@@ -252,13 +305,15 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
                 if not refresh_epoch:
                     batch = dict(batch, thetas=thetas_for(sel, accum, B))
                 metrics = train_step(step_spec, unet, atms, recon_opt, trans_opt,
-                                     _to_device(batch, device),
-                                     seeded_generator(seed, global_idx * 10000 + n_steps))
+                                     put_batch(batch, True)[0],
+                                     seeded_generator(seed, global_idx * 10000 + n_steps),
+                                     mesh=mesh)
                 losses.append(float(metrics['loss']))
                 accumulate_label_scores(t_metrics, 'dice', metrics['dice'].cpu().numpy(),
                                         training_dataset.label_tags)
                 n_steps += 1
-            train_loss = float(np.mean(losses)) if losses else float('nan')
+            train_loss = broadcast_scalar(
+                float(np.mean(losses)) if losses else float('nan'), mesh)
             _log_phase(logger, config, 'train', train_loss, t_metrics, global_idx)
 
             if use_theta_cache and refresh_epoch:
@@ -267,24 +322,25 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
                 refresh_theta_cache()
 
             # ---- val ----
-            val_loss = _eval_phase('val', specs['val'], unet, atms, training_dataset,
-                                   val_idxs, config, logger, global_idx, epx, device,
-                                   segmenter=segmenter)
+            val_loss = broadcast_scalar(_eval_phase(
+                'val', specs['val'], unet, atms, training_dataset, val_idxs, config, logger,
+                global_idx, epx, put_batch, mesh, segmenter=segmenter), mesh)
         else:
             train_loss, val_loss = float('nan'), float('nan')
 
         # ---- test ----
         test_out_dir = config.get('test_only_and_output_to') or None
         _eval_phase('test', specs['test'], unet, atms, test_dataset, None, config, logger,
-                    global_idx, epx, device, out_dir=test_out_dir, segmenter=segmenter)
+                    global_idx, epx, put_batch, mesh,
+                    out_dir=test_out_dir if main_rank else None, segmenter=segmenter)
 
         epoch_s = time.time() - epoch_t0
         perf = {'perf/epoch_s': epoch_s}
         if not run_test_once_only:
             perf['perf/train_slices'] = n_steps * accum * B * spec.n_views
         logger.log(perf, step=global_idx)
-        print(f"epoch {epx}: train_loss={train_loss:.4f} val_loss={val_loss:.4f} "
-              f"({epoch_s:.1f}s)")
+        log(f"epoch {epx}: train_loss={train_loss:.4f} val_loss={val_loss:.4f} "
+            f"({epoch_s:.1f}s)")
 
         if run_test_once_only:
             break
@@ -292,13 +348,21 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
         # ---- checkpointing: the full training state, best-val quality ----
         quality = val_loss
         save_every = config.get('save_every')
-        ckpt_state = dict(
-            unet=unet.state_dict(), atms=atms.state_dict(),
-            recon_opt=recon_opt[0].state_dict(), recon_sched=recon_opt[1].state_dict(),
-            trans_opt=trans_opt[0].state_dict(), trans_sched=trans_opt[1].state_dict(),
-            epoch=epx, loss=train_loss,
-            best_quality=min(best_quality, quality) if save_every == 'best'
-            else best_quality)
+        best_to_save = min(best_quality, quality) if save_every == 'best' else best_quality
+
+        def save(path):
+            """Every rank gathers the split state (collectives); rank 0 writes the
+            one-device checkpoint; the others wait until it is on disk."""
+            state = dict(
+                unet=gather_module_state(unet, split, mesh), atms=atms.state_dict(),
+                recon_opt=gather_optimizer_state(recon_opt[0], unet, split, mesh),
+                recon_sched=recon_opt[1].state_dict(),
+                trans_opt=trans_opt[0].state_dict(), trans_sched=trans_opt[1].state_dict(),
+                epoch=epx, loss=train_loss, best_quality=best_to_save)
+            if main_rank:
+                save_checkpoint(path, state)
+            barrier(mesh)
+
         save_path = None
         if save_every == 'best':
             if quality < best_quality:
@@ -308,7 +372,7 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
                 epx % save_every == 0 or epx + 1 == config['epochs']):
             save_path = Path(base_dir) / config['mdl_save_prefix'] / f"{run_name}_epx{epx}"
         if save_path is not None:
-            save_checkpoint(save_path, ckpt_state)
+            save(save_path)
             best_save_path = str(save_path)
             if stage is not None:
                 stage['save_path'] = str(save_path)
@@ -317,9 +381,9 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
             # pausing early: force-save the exact stop-epoch state, returned as the
             # resume path; stage chaining still points at the save above
             save_path = Path(base_dir) / config['mdl_save_prefix'] / f"{run_name}_pause"
-            save_checkpoint(save_path, ckpt_state)
+            save(save_path)
             best_save_path = str(save_path)
-            print(f"paused at epoch {epx}; resume with model_checkpoint_path={save_path}")
+            log(f"paused at epoch {epx}; resume with model_checkpoint_path={save_path}")
 
         if config.get('debug'):
             break
@@ -368,12 +432,16 @@ def heavy_scores(scores, spec, pred, label, nii_affine, eval_tags):
 
 
 def _eval_phase(phase, spec, unet, atms, dataset, idxs, config, logger, global_idx, epx,
-                device, out_dir=None, segmenter=None):
+                put_batch, mesh, out_dir=None, segmenter=None):
+    """One evaluation pass; ``put_batch(batch, train, image)`` -> (batch on the
+    device, its data shard) as the runner places batches. Rank 0 alone (the one
+    with a logger directory) writes artifacts."""
     if dataset is None or len(dataset) == 0:
         return float('nan')
     unet.eval()
     atms.eval()
-    collect_artifacts = bool(config.get('do_output')) and phase in ('val', 'test')
+    collect_artifacts = (bool(config.get('do_output')) and phase in ('val', 'test')
+                         and logger.dir is not None)
     epx_affines = {}
     epx_inputs = {}
     scores = {}
@@ -386,9 +454,11 @@ def _eval_phase(phase, spec, unet, atms, dataset, idxs, config, logger, global_i
 
     for i, (sel, batch) in enumerate(dataset.iterate_eval_batches(idxs, batch_size)):
         gen = seeded_generator(config.get('seed', 0) + 7, global_idx * 10000 + i)
-        batch_t = _to_device(batch, device, image=segmenter is not None)
+        batch_t, shard = put_batch(batch, False, segmenter is not None)
         out = eval_step(spec, unet, atms, batch_t, gen, with_aug=with_aug,
-                        segmenter=segmenter)
+                        segmenter=segmenter, mesh=mesh, data_shard=shard)
+        if shard is not None:
+            batch_t = _to_device(batch, out['pred'].device)
         losses.append(float(out['loss']))
         accumulate_label_scores(scores, 'dice', out['dice'].cpu().numpy(), eval_tags)
 

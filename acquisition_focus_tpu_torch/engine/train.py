@@ -41,6 +41,8 @@ from acquisition_focus_tpu_torch.ops.affine import compose
 from acquisition_focus_tpu_torch.ops.resample import (
     image_resize, nifti_grid_sample, nifti_grid_sample_nodiff, resize_trilinear)
 from acquisition_focus_tpu_torch.ops.rotations import random_affine_batch
+from acquisition_focus_tpu_torch.parallel.collectives import (
+    data_gather, data_mean, sync_gradients)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,8 +188,21 @@ def compute_thetas(spec: StageSpec, atms, soft_label, nii_affine, view_affines):
     return apply_stacked_atms(atms, prescan, spec.view_train_mask(), spec.atm_remat)
 
 
+def augment_affines(spec: StageSpec, generator, n, device, data_shard=None):
+    """``n`` samples' orientation augmentation affines (n, 4, 4) from ``generator``.
+    ``data_shard`` (index, count): this rank holds rows index*n .. of a batch split
+    over a data axis of ``count`` ranks; the draws are the whole batch's, so each
+    sample gets the draws it gets on one device, and the rank keeps its rows."""
+    total = n * data_shard[1] if data_shard else n
+    aug = random_affine_batch(
+        generator, total, rotation_strength=0.1 * spec.augment_strength,
+        zoom_strength=0.2 * spec.augment_strength, offset_strength=0.0, device=device)
+    return aug[data_shard[0] * n:(data_shard[0] + 1) * n] if data_shard else aug
+
+
 def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affines,
-                        augment_generator=None, cached_thetas=None, image=None):
+                        augment_generator=None, cached_thetas=None, image=None,
+                        data_shard=None):
     """Per-view model-input slices along learned view planes.
 
     Args:
@@ -201,6 +216,8 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
         (the cache was taken from the unaugmented view orientation).
       image: optional (B, D, H, W) intensity volume, sliced along the same planes
         without gradient.
+      data_shard: (index, count) of a batch split over a data axis
+        (:func:`augment_affines`).
 
     Returns: (slices (A, B, C, Sh, Sw), grid_affines (A, B, 4, 4),
               out_nii_affines (A, B, 4, 4), thetas (A, B, 4, 4),
@@ -209,10 +226,7 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
     A = spec.n_active_views
     B, C = soft_label.shape[:2]
     if augment_generator is not None:
-        aug = random_affine_batch(
-            augment_generator, B, rotation_strength=0.1 * spec.augment_strength,
-            zoom_strength=0.2 * spec.augment_strength, offset_strength=0.0,
-            device=soft_label.device)
+        aug = augment_affines(spec, augment_generator, B, soft_label.device, data_shard)
         view_affines = compose(view_affines, aug[None])
 
     if spec.use_affine_theta and spec.theta_source == 'cached':
@@ -255,7 +269,8 @@ def extract_view_slices(spec: StageSpec, atms, soft_label, nii_affine, view_affi
             image_slices)
 
 
-def assemble_model_input(spec: StageSpec, slices, grid_affines, augment_generator=None):
+def assemble_model_input(spec: StageSpec, slices, grid_affines, augment_generator=None,
+                         data_shard=None):
     """Duplicate the last active view into the missing ones and stack the views on
     the channel axis: (B, V*C, S, S) input + (V, B, 4, 4) affines."""
     A, V = spec.n_active_views, spec.n_views
@@ -263,11 +278,8 @@ def assemble_model_input(spec: StageSpec, slices, grid_affines, augment_generato
     slices = slices[idx]
     grid_affines = grid_affines[idx]
     if augment_generator is not None:
-        aug = random_affine_batch(
-            augment_generator, slices.shape[1],
-            rotation_strength=0.1 * spec.augment_strength,
-            zoom_strength=0.2 * spec.augment_strength, offset_strength=0.0,
-            device=slices.device)
+        aug = augment_affines(spec, augment_generator, slices.shape[1], slices.device,
+                              data_shard)
         grid_affines = compose(grid_affines, aug[None])
     return torch.cat(list(slices), dim=1), grid_affines
 
@@ -305,7 +317,7 @@ def segment_slices(spec: StageSpec, segmenter, image_slices, train_spacing_mm=1.
 
 
 def forward(spec: StageSpec, unet, atms, batch, augment_generator=None, train=True,
-            segmenter=None):
+            segmenter=None, data_shard=None):
     """Volumes -> view slices -> reconstruction -> loss.
 
     ``batch``: 'label' (B, D, H, W) int, 'nii_affine' (B, 4, 4),
@@ -314,7 +326,7 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None, train=Tr
     come from ``augment_generator`` (None: no augmentation). Under
     ``label_slice_type='from-segmented'``, when not ``train`` and given a
     ``segmenter``, the model sees the segmented image slices in place of the label
-    slices."""
+    slices. ``data_shard``: (index, count) of a batch split over a data axis."""
     label = batch['label']
     nii_affine = batch['nii_affine']
     view_affines = batch['view_affines'][:spec.n_active_views]
@@ -326,10 +338,11 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None, train=Tr
                      and segmenter is not None)
     slices, grid_affines, out_nii, thetas, image_slices = extract_view_slices(
         spec, atms, onehot, nii_affine, view_affines, aug_in, batch.get('thetas'),
-        image=batch['image'] if use_segmenter else None)
+        image=batch['image'] if use_segmenter else None, data_shard=data_shard)
     if use_segmenter:
         slices = segment_slices(spec, segmenter, image_slices)
-    b_input, grid_affines_full = assemble_model_input(spec, slices, grid_affines, aug_re)
+    b_input, grid_affines_full = assemble_model_input(spec, slices, grid_affines, aug_re,
+                                                      data_shard)
     if spec.model_type in EPIX2VOX_TYPES:
         logits = epix2vox_interface_output(
             unet(epix2vox_interface_input(b_input, spec.n_views)))
@@ -357,13 +370,23 @@ def forward(spec: StageSpec, unet, atms, batch, augment_generator=None, train=Tr
 
 
 def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
-               augment_generator=None):
+               augment_generator=None, mesh=None):
     """One optimizer update over ``num_grad_accum_steps`` microbatches.
 
     ``recon_opt``/``trans_opt``: (optimizer, scheduler) pairs from
     ``engine.optimizers``. ``batch`` leaves have a leading (accum, ...) axis.
-    Returns {'loss': mean microbatch loss, 'dice': (accum*B, classes)}."""
+    Returns {'loss': mean microbatch loss, 'dice': (accum*B, classes)}.
+
+    ``mesh`` (``parallel.make_mesh``): ``batch`` is this rank's slice of the
+    step's batch over 'data' (``parallel.shard_batch``) and the models are
+    sharded (``parallel.shard_params``). The augmentation draws are the whole
+    batch's; after the accumulation loop the gradients are averaged over 'data'
+    (``parallel.collectives.sync_gradients``); the loss and dice returned are the
+    whole batch's, in the one-device order."""
     accum = spec.num_grad_accum_steps
+    data_shard = None
+    if mesh is not None and 'data' in mesh.shape:
+        data_shard = (mesh.axis_index('data'), mesh.axis_size('data'))
     num_eval = 2 if spec.use_binarized_labels else spec.num_classes
     for opt, _ in (recon_opt, trans_opt):
         opt.zero_grad(set_to_none=True)
@@ -371,13 +394,17 @@ def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
     losses, dices = [], []
     for i in range(accum):
         micro = {k: v[i] for k, v in batch.items()}
-        loss, aux = forward(spec, unet, atms, micro, augment_generator)
+        loss, aux = forward(spec, unet, atms, micro, augment_generator,
+                            data_shard=data_shard)
         (loss / accum).backward()
         with torch.no_grad():
             _, dice = metrics_from_logits(aux['logits'], aux['target_onehot'], num_eval)
         losses.append(loss.detach())
         dices.append(dice)
         del loss, aux
+
+    if mesh is not None:
+        sync_gradients(mesh, (unet, atms))
 
     # per-view trainability: frozen (and inactive) views get no gradient and so
     # no AdamW update — no weight decay either
@@ -390,7 +417,10 @@ def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
     for opt, sched in (recon_opt,) + ((trans_opt,) if full_mask.any() else ()):
         opt.step()
         sched.step()
-    return {'loss': torch.stack(losses).mean(), 'dice': torch.cat(dices)}
+    loss, dice = torch.stack(losses).mean(), torch.stack(dices)
+    if data_shard is not None:
+        loss, dice = data_mean(loss, mesh), data_gather(dice, mesh, dim=1)
+    return {'loss': loss, 'dice': dice.reshape(-1, dice.shape[-1])}
 
 
 @torch.no_grad()
@@ -407,15 +437,23 @@ def theta_pass(spec: StageSpec, atms, batch):
 
 @torch.no_grad()
 def eval_step(spec: StageSpec, unet, atms, batch, generator=None, with_aug=False,
-              segmenter=None):
+              segmenter=None, mesh=None, data_shard=None):
     """Forward-only step: loss, per-class dice, dense predictions, and the view
     geometry (thetas, slice affines) and model input for logging and output.
     Augmentation draws come from ``generator`` when ``with_aug``; ``segmenter``: the
-    frozen segmenter of from-segmented runs (see :func:`forward`)."""
+    frozen segmenter of from-segmented runs (see :func:`forward`). Under a
+    ``mesh`` with ``data_shard`` (index, count), ``batch`` is this rank's slice of
+    the batch over 'data' and the outputs are gathered to the whole batch's."""
     loss, aux = forward(spec, unet, atms, batch, generator if with_aug else None,
-                        train=False, segmenter=segmenter)
+                        train=False, segmenter=segmenter, data_shard=data_shard)
     num_eval = 2 if spec.use_binarized_labels else spec.num_classes
     pred, dice = metrics_from_logits(aux['logits'], aux['target_onehot'], num_eval)
-    return {'loss': loss, 'dice': dice, 'pred': pred, 'thetas': aux['thetas'],
-            'grid_affines': aux['grid_affines'], 'out_nii_affines': aux['out_nii_affines'],
-            'b_input': aux['b_input']}
+    out = {'loss': loss, 'dice': dice, 'pred': pred, 'thetas': aux['thetas'],
+           'grid_affines': aux['grid_affines'], 'out_nii_affines': aux['out_nii_affines'],
+           'b_input': aux['b_input']}
+    if data_shard is not None:
+        out = {k: data_mean(v, mesh) if k == 'loss' else
+               data_gather(v, mesh, 1 if k in ('thetas', 'grid_affines', 'out_nii_affines')
+                           else 0)
+               for k, v in out.items()}
+    return out

@@ -170,8 +170,9 @@ class HybridUnet(nn.Module):
     (``models/recompute.py``). ``remat_skips``: the stages and the deepest skip
     re-embedding run again whole in backward; otherwise the stages keep their
     convolutions' outputs (if ``'conv_out'`` is in ``decoder_save_names``), K1f's
-    concat buffer, and the conv inputs of the named levels, and recompute the
-    norms, activations and concats."""
+    concat buffer, the forward all-gathers of a feature-sharded stage
+    (``parallel/feature_parallel.py``) and the conv inputs of the named levels,
+    and recompute the norms, activations and concats."""
 
     def __init__(self, n_views, num_classes, base_features=BASE_FEATURES,
                  dtype=torch.float32, use_pallas_conv=False, remat_skips=True,
@@ -183,7 +184,7 @@ class HybridUnet(nn.Module):
         ins = [n_views * num_classes] + feats[:-1]
         keep_in = set() if remat_skips else decoder_save_levels(decoder_save_names,
                                                                 len(feats) - 1)
-        self.save_ops = None if remat_skips else recompute.SKIP | (
+        self.save_ops = None if remat_skips else recompute.SKIP | recompute.COLLECTIVES | (
             recompute.CONV_OUT if 'conv_out' in decoder_save_names else frozenset())
         self.encoder = nn.ModuleList([
             EncoderStage(ci, co, 1 if s == 0 else 2, n_views)

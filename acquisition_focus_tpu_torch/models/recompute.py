@@ -11,7 +11,9 @@ activations (``checkpoint_name``) and recomputing the rest. Here a region is
   outputs of those ops and recomputes everything else from them. The ops are the
   JAX package's names: :data:`CONV_OUT` is ``'conv_out'``, the output of every
   convolution (cuDNN's ``aten.convolution`` and K3's op); :data:`SKIP` is K1f's
-  concat buffer, which holds the JAX package's kept stage input, the 3D skip.
+  concat buffer, which holds the JAX package's kept stage input, the 3D skip;
+  :data:`COLLECTIVES` are the forward all-gathers of a feature-sharded stage
+  (``parallel/collectives.py``), kept so that backward does not gather again.
   The hand-written kernels' forwards are dispatcher ops
   (``torch.library.custom_op``) for this: a launch through ctypes inside an
   autograd Function would be invisible to the policy and run again.
@@ -34,10 +36,12 @@ from torch.utils.checkpoint import (
 # registers the kernels' dispatcher ops named below
 import acquisition_focus_tpu_torch.ops.kernels.conv3d  # noqa: F401
 import acquisition_focus_tpu_torch.ops.kernels.plane_resample  # noqa: F401
+from acquisition_focus_tpu_torch.parallel.collectives import KEPT_OPS
 
 CONV_OUT = frozenset({torch.ops.aten.convolution.default,
                       torch.ops.afocus.conv3d_fwd.default})
 SKIP = frozenset({torch.ops.afocus.skip_concat_fwd.default})
+COLLECTIVES = KEPT_OPS
 
 
 def _policy(save_ops, ctx, op, *args, **kwargs):

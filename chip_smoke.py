@@ -75,6 +75,17 @@
 8. A small float32 configuration on the GPU held against the same forward,
    ``theta_pass`` and ``eval_step`` on the CPU, where every wrapper takes its plain
    version.
+8b. The device mesh (``parallel/``): K3, K3 as dx and K4 at the shapes a 'model'
+   axis gives the 128^3 decoder convs (Ci 96 / 48 -> Co 24 and 12), in rows of
+   their own (``<kernel> mesh``), in the kernel phase; then ``run_dl`` at full
+   width (one epoch, ``'full'``, the build's cases, fold 0) without a mesh, and in
+   an NCCL process group of one rank on {'data': 1} and on {'model': 1} (every
+   collective at world size 1, every U-Net module its sharded stand-in): the
+   logged losses and scores and the epoch's checkpoint (parameters, both
+   optimizers' states) bit-equal to the unmeshed run's; every kernel must launch
+   in the mesh runs. With two or more cards it also runs ``scripts/smoke_mesh``'s
+   gradient checks on the meshes that fit (the four-card proof is ``python3 -m
+   acquisition_focus_tpu_torch.scripts.smoke_mesh``). The phase prints which.
 9. The last line is {"ok": true, "device": {...}}; the line before it lists the
    kernels as JSON: launches during the CLI run (``launches``; per path in
    ``launches_by_path``: the hybrid-unet sweep, the (E)Pix2Vox sweep and the
@@ -646,6 +657,8 @@ def check_conv3d_grads(chk, convs=CONVS_3V, suffix=''):
 FS = ' from-segmented'      # suffix of the rows at the from-segmented sweep's shapes
 FS_KERNELS = ('plane_resample_fwd', 'plane_resample_bwd', 'conv3d_fwd', 'conv3d_dx',
               'conv3d_wgrad')
+MESH = ' mesh'              # suffix of the rows at the shapes a 'model' axis gives
+MESH_KERNELS = ('conv3d_fwd', 'conv3d_dx', 'conv3d_wgrad')
 
 
 def check_from_segmented_kernels(chk, rng):
@@ -955,7 +968,8 @@ def run_build(tmp):
     centroid fit, prescan, reoriented volumes, input view affines). The 2 test
     cases are built again on the CPU with the card's centroid affines injected, and
     everything downstream of them compared; the centroid fits of the two builds are
-    compared apart, without a gate. Returns the data directory."""
+    compared apart, without a gate. Returns the data directory and the card's
+    (training, test) datasets."""
     from acquisition_focus_tpu_torch.data import base_dataset
     from acquisition_focus_tpu_torch.data.cache import load_or_build
     from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
@@ -1015,7 +1029,7 @@ def run_build(tmp):
         log(f"  {cid}: centroid fit, CPU vs card, max abs diff {fit_diff:.3e} (not "
             f"gated: 500 AdamW steps that do not converge amplify the class centers' "
             f"float32 rounding, PARITY.md)")
-    return data
+    return data, (built['train', 'cuda'], card)
 
 
 def check_sweep(state_path, runs_dir, stages):
@@ -1594,6 +1608,93 @@ def run_from_segmented(tmp, data):
             'reference': ref}
 
 
+def run_mesh(tmp, datasets):
+    """The device mesh on this card: ``run_dl`` at full width (one epoch,
+    ``'full'``, fold 0 of the build's cases: 4 train, 2 val, 2 test) without a
+    mesh, then in an NCCL process group of one rank on {'data': 1} (the gradient
+    all-reduce over 'data') and on {'model': 1} (every U-Net module its sharded
+    stand-in, every collective at world size 1): the losses and scores in
+    ``metrics.jsonl`` and the epoch's checkpoint bit-equal to the unmeshed run's.
+    The kernel counts are set to 0 just before the mesh runs and read just after;
+    every kernel must have launched. With two or more cards, ``smoke_mesh``'s
+    gradient checks on the meshes that fit. Returns the mesh runs' launches."""
+    import torch.distributed as dist
+    from acquisition_focus_tpu_torch.engine.checkpoint import load_checkpoint
+    from acquisition_focus_tpu_torch.engine.runner import load_config, run_dl
+    from acquisition_focus_tpu_torch.main import build_fold_iter
+    from acquisition_focus_tpu_torch.ops.kernels import _lib
+    from acquisition_focus_tpu_torch.parallel.mesh import free_port, mesh_processes
+    train, test = datasets
+    config = load_config(overrides=dict(
+        epochs=1, use_pallas_conv3d='full', save_every=1, do_output=False,
+        use_caching=False, log_dir=str(tmp / 'mesh_runs'),
+        mdl_save_prefix=str(tmp / 'mesh_models')))
+    fold = build_fold_iter(dict(config, fold_override=0), train)[0]
+    runs = {'no mesh': None, "{'data': 1}": {'data': 1}, "{'model': 1}": {'model': 1}}
+    log(f"mesh: run_dl, 1 epoch, 'full', fold 0 ({len(fold[1][0])} train, "
+        f"{len(fold[1][1])} val, {len(test)} test cases), without a mesh, then in an "
+        f"NCCL process group of one rank on {list(runs)[1:]}")
+    seconds = {}
+    for i, (name, shape) in enumerate(runs.items()):
+        if i == 1:
+            dist.init_process_group('nccl', init_method=f'tcp://localhost:{free_port()}',
+                                    rank=0, world_size=1)
+            torch.cuda.synchronize()
+            _lib.reset_launch_counts()
+        t0 = time.perf_counter()
+        run_dl(str(tmp), dict(config, mesh_shape=shape), fold, training_dataset=train,
+               test_dataset=test, run_name=f'mesh{i}')
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    launches = dict(_lib.LAUNCHES)
+    dist.destroy_process_group()
+    log(f"  run_dl seconds {seconds}; kernel launches in the mesh runs: {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the mesh runs: {missing}")
+
+    def logged(i):
+        recs = [json.loads(line) for line in
+                (tmp / 'mesh_runs' / f'mesh{i}' / 'metrics.jsonl').read_text().splitlines()]
+        return [(r['step'], k, v) for r in recs for k, v in sorted(r.items())
+                if k.startswith(('losses/', 'scores/'))]
+
+    def tensors(tree, prefix=''):
+        if isinstance(tree, torch.Tensor):
+            return {prefix: tree}
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items()
+                    for k2, v2 in tensors(v, f'{prefix}/{k}').items()}
+        return {}
+
+    ref_log = logged(0)
+    ref_ck = tensors(load_checkpoint(tmp / 'mesh_models' / 'mesh0_epx0'))
+    for i, name in list(enumerate(runs))[1:]:
+        got = tensors(load_checkpoint(tmp / 'mesh_models' / f'mesh{i}_epx0'))
+        differ = [k for k in ref_ck if k not in got or not torch.equal(ref_ck[k], got[k])]
+        same_log = logged(i) == ref_log
+        log(f"  {name}: {len(ref_log)} logged losses and scores bit-equal to the unmeshed "
+            f"run's: {same_log}; checkpoint tensors {len(ref_ck)}, differing {len(differ)}"
+            f" {differ[:3]}")
+        if not same_log or differ or got.keys() != ref_ck.keys():
+            raise AssertionError(f"mesh {name} on one card is not the unmeshed run")
+    for i in range(len(runs)):
+        (tmp / 'mesh_models' / f'mesh{i}_epx0').unlink()
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("  mesh phase: one card, so the world of one only (the multi-card checks "
+            "are smoke_mesh's)")
+        return launches
+    from acquisition_focus_tpu_torch.scripts import smoke_mesh
+    fits = [m for m in smoke_mesh.MESHES if mesh_processes(m) <= cards]
+    log(f"  mesh phase: {cards} cards, so also smoke_mesh's gradient checks on {fits}")
+    failures = smoke_mesh.check_meshes('cuda', fits, tmp / 'smoke_mesh')[3]
+    if failures:
+        raise AssertionError(f"smoke_mesh's checks failed: {failures}")
+    return launches
+
+
 def log_clocks(when):
     """The card's SM clock (and its maximum), temperature and power draw: a card
     running below its clock moves every compute-bound time of the run."""
@@ -1633,6 +1734,9 @@ def main():
     check_conv3d(chk, rng)
     check_conv3d_grads(chk)
     check_from_segmented_kernels(chk, np.random.default_rng(4))
+    from acquisition_focus_tpu_torch.scripts.smoke_mesh import CONVS_MESH
+    check_conv3d(chk, np.random.default_rng(5), CONVS_MESH, MESH)
+    check_conv3d_grads(chk, CONVS_MESH, MESH)
     torch.cuda.empty_cache()
     log_clocks('after the kernel checks')
 
@@ -1641,7 +1745,9 @@ def main():
     compare_modes(fwd, full)
     remat = run_recompute()
     with tempfile.TemporaryDirectory(prefix='chip_smoke_') as tmp:
-        data = run_build(Path(tmp))
+        data, datasets = run_build(Path(tmp))
+        mesh_launches = run_mesh(Path(tmp), datasets)
+        del datasets
         launches = run_sweep(Path(tmp), data)
         epix_launches = run_epix2vox_sweep(Path(tmp), data)
         fs = run_from_segmented(Path(tmp), data)
@@ -1668,7 +1774,8 @@ def main():
                 'launches': launches[name],
                 'launches_by_path': {'sweep': launches[name],
                                      'epix2vox_sweep': epix_launches[name],
-                                     'from_segmented_sweep': fs['launches'][name]},
+                                     'from_segmented_sweep': fs['launches'][name],
+                                     'mesh_world_of_one': mesh_launches[name]},
                 'launches_per_step': {
                     **{m: r['launches'][name] / STEPS for m, r in (('fwd', fwd),
                                                                     ('full', full))},
@@ -1688,10 +1795,14 @@ def main():
                 **({'from_segmented': {k: chk.rows[name + FS].get(k) for k in
                                        ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
                                         'bound_by', 'library_ms')}}
-                   if name in FS_KERNELS else {})}
+                   if name in FS_KERNELS else {}),
+                **({'mesh_shards': {k: chk.rows[name + MESH].get(k) for k in
+                                    ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                                     'bound_by', 'library_ms')}}
+                   if name in MESH_KERNELS else {})}
                for name, (src, rep) in sources.items()]
     for k in kernels:
-        for shape in ('prescan32', 'from_segmented'):
+        for shape in ('prescan32', 'from_segmented', 'mesh_shards'):
             if shape in k:
                 k['max_abs_err'] = max(k['max_abs_err'], k[shape]['max_abs_err'])
     log("(E)Pix2Vox s/step at batch 1 x accum 4, 2 views, 128^3: " + "; ".join(

@@ -704,7 +704,10 @@ K2_ZOOMS = (0.7, 0.85, 1.0, 1.15, 1.3, 1.45)
     (1, 3, 2, (1.1,), (17, 19, 21), (15, 17, 19)),
     # a shrink by 4 per axis over the same field of view (the from-segmented
     # configs' 32^3 prescan from the 128^3 volume)
-    (2, 6, 4, (1.0,), (64, 64, 64), (16, 16, 16))])
+    (2, 6, 4, (1.0,), (64, 64, 64), (16, 16, 16)),
+    # one volume and its three views' affines: a rank's share of a batch of 2 on a
+    # 'data' axis of 2 (parallel/)
+    (1, 6, 3, K2_ZOOMS, DHW, (16, 32, 40))])
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 def test_volume_resample_kernel_matches_plain(cuda, dtype, B, C, n_theta, zooms, in_dhw,
                                               out_dhw):
@@ -785,6 +788,16 @@ def test_conv3d_full_gradients_at_the_two_view_channels(cuda, dtype, ci, co):
     full-resolution decoder convs of a two-view hybrid U-Net (the from-segmented
     configs): 64 -> 32 and 32 -> 32."""
     check_conv3d_mode_gradients(cuda, dtype, 'full', 2, ci, co)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('ci,co', [(96, 24), (48, 24), (96, 12), (48, 12)])
+def test_conv3d_full_gradients_at_the_mesh_shard_channels(cuda, dtype, ci, co):
+    """As test_conv3d_mode_gradients_match_library under 'full' (K3 forward, K3
+    as dx, K4), at batch 1 and the channels a 'model' axis of 2 and 4 leaves the
+    reference-width 128^3 decoder convs (96 / 48 -> 48 / m; parallel/)."""
+    check_conv3d_mode_gradients(cuda, dtype, 'full', 1, ci, co)
 
 
 def check_conv3d_mode_gradients(cuda, dtype, mode, B, ci, co):

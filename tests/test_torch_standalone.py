@@ -86,6 +86,22 @@ make_epix2vox_optimizer(epix, 1)
 with torch.no_grad():
     occ = epix(epix2vox_interface_input(torch.rand(1, 4, 16, 16), 2))
 assert occ.shape == (1, 128, 128, 128) and torch.isfinite(occ).all()
+import torch.distributed as dist
+from acquisition_focus_tpu_torch import parallel
+from acquisition_focus_tpu_torch.parallel.mesh import free_port, make_mesh
+assert make_mesh(None) is None
+dist.init_process_group('gloo', init_method=f'tcp://localhost:{free_port()}', rank=0,
+                        world_size=1)
+mesh = make_mesh({'model': 1})
+unet, atms = train.make_models(spec, 'cpu')
+train.init_params(unet, atms, torch.Generator().manual_seed(0))
+parallel.shard_params(unet, atms, mesh)
+out = train.train_step(spec, unet, atms,
+                       make_reconstruction_optimizer(unet.parameters(), 1e-3, 1),
+                       make_transform_optimizer(atms.parameters(), 1e-3, 2, 1),
+                       parallel.shard_batch(batch, mesh), mesh=mesh)
+assert np.isfinite(float(out['loss']))
+dist.destroy_process_group()
 from acquisition_focus_tpu_torch.models.segmentation import SegUnet2D
 seg = SegUnet2D(3, (4, 8)).eval()
 onehot = train.segment_slices(spec, seg, torch.randn(2, 1, 1, 16, 16))
@@ -98,9 +114,11 @@ print('ok')
 
 
 def test_port_stands_alone_with_the_jax_package_blocked():
-    """Every module of the port imports, and one skinny CPU ``train_step`` and a
-    segmenter's ``segment_slices`` run, with any import of ``acquisition_focus_tpu``
-    refused; no jax, flax, optax or orbax module is loaded."""
+    """Every module of the port imports, and one skinny CPU ``train_step`` (also on
+    a {'model': 1} mesh of ``acquisition_focus_tpu_torch.parallel`` in a gloo group
+    of one process) and a segmenter's ``segment_slices`` run, with any import of
+    ``acquisition_focus_tpu`` refused; no jax, flax, optax or orbax module is
+    loaded."""
     torch_threads = 'import torch; torch.set_num_threads(2)\n'
     out = subprocess.run([sys.executable, '-c', torch_threads + STANDALONE],
                          capture_output=True, text=True, timeout=300)

@@ -12,7 +12,10 @@ knots. Where a pre-activation or a sample coordinate lies within the two
 frameworks' float32 rounding difference of such a kink, the two take different
 branches, which moves the weight gradients behind it by up to a few percent.
 BATCH_SEED is a batch with no point in that band (of seeds 0-9, 4 and 7 are such
-batches). ``test_torch_step_kinks.py`` covers seeds 0-9 with the branches aligned.
+batches). ``test_torch_step_kinks.py`` and ``test_torch_step_kinks_seeds.py`` cover
+seeds 0-9 with the branches aligned. The label options' steps are held in
+``test_torch_step_options.py`` and ``test_torch_step_options_both.py``, whose
+JAX compiles would make one file the longest of the suite.
 """
 
 import dataclasses
@@ -46,6 +49,17 @@ SKINNY = dict(
     base_features=(2, 4, 4, 8), locnet_width=2)
 LR, UPE, EPOCHS = 1e-3, 2, 8
 BATCH_SEED = 4
+
+
+@pytest.fixture(scope='module', autouse=True)
+def few_threads():
+    """The port's side of these tests is many small ops: with several test workers
+    on one machine, torch's default of one intra-op thread per core oversubscribes
+    the cores and slows every worker (``test_torch_runner.py`` does the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
 
 
 def view_affines(rng, n_views, B):
@@ -145,14 +159,6 @@ def step_pair():
     return run_step_pair(SKINNY)
 
 
-@pytest.fixture(scope='module', params=list(LABEL_OPTIONS))
-def option_step_pair(request):
-    """The step under the label options of the shipped configs: binarized labels,
-    the LV-only loss, and both (whose LV index the JAX package clamps to the
-    foreground channel, its gradient dropped)."""
-    return run_step_pair(dict(SKINNY, **LABEL_OPTIONS[request.param]))
-
-
 def unet_pairs(tree, module):
     """(name, JAX leaf converted to the torch layout, torch param)."""
     ref = unet_state_dict(tree)
@@ -239,16 +245,11 @@ def test_params_moved(step_pair):
         assert not np.array_equal(p.detach().numpy(), old[name]), name
 
 
-@pytest.mark.parametrize('check', ['loss', 'dice', 'updated_params', 'params_moved'])
-def test_label_options_match(option_step_pair, check):
-    """Under each label option, the checks of the default step above at their
-    tolerances. The gradient leaves are compared in ``test_torch_step_kinks.py``
-    with the kink branches aligned: under binarized labels batch seed 4 has a
-    sample coordinate within the two frameworks' rounding of a voxel knot (a locnet
-    leaf 1.15e-4 of its max off running free, 4.0e-5 with JAX's coordinates)."""
-    {'loss': test_loss_matches, 'dice': test_dice_matches,
-     'updated_params': test_updated_params_match,
-     'params_moved': test_params_moved}[check](option_step_pair)
+def label_option_checks():
+    """The checks of the default step above, by name: ``test_torch_step_options.py``
+    and ``test_torch_step_options_both.py`` run them under the label options."""
+    return {'loss': test_loss_matches, 'dice': test_dice_matches,
+            'updated_params': test_updated_params_match, 'params_moved': test_params_moved}
 
 
 def test_frozen_views_bit_unchanged():
@@ -298,11 +299,11 @@ def test_stage_spec_fields_match_jax():
 
 
 @pytest.mark.parametrize('override', [
-    dict(mesh_shape={'data': 2}), dict(model_type='epix2vox')])
+    dict(mesh_shape={'data': 2}, model_type='hybrid-EPix2Vox'), dict(model_type='epix2vox')])
 def test_unported_options_refused(override):
     """Options whose code is not ported raise instead of running without effect:
-    stage options in make_models, run options (a device mesh) in run_dl before it
-    builds anything."""
+    stage options in make_models, run options ((E)Pix2Vox under a device mesh) in
+    run_dl before it builds anything."""
     with pytest.raises(NotImplementedError):
         if set(override) <= {f.name for f in dataclasses.fields(ttrain.StageSpec)}:
             ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)), 'cpu')
