@@ -18,12 +18,13 @@ takes the JAX package's orbax directories (``engine/checkpoint.py``).
 
 A ``mesh_shape`` runs the step on a device mesh (``parallel/mesh.py``) in a process
 group of one process per device (``main.py`` starts them): the batch split over
-'data', the U-Net's features over 'model'. Evaluation batches whose size the
-'data' axis does not divide (``val_batch_size=1``), ``theta_pass`` and the heavy
-metrics run replicated on every rank; rank 0 alone logs and writes metrics,
-artifacts and checkpoints, which keep the one-device format (the slices gathered
-to full tensors on save, sliced again on load). Not ported: (E)Pix2Vox under a
-mesh, which raises ``NotImplementedError``.
+'data', the reconstruction model's features over 'model' (the hybrid U-Net's or
+(E)Pix2Vox's, whose batch norms then take the whole batch's statistics over
+'data'). Evaluation batches whose size the 'data' axis does not divide
+(``val_batch_size=1``), ``theta_pass`` and the heavy metrics run replicated on
+every rank; rank 0 alone logs and writes metrics, artifacts and checkpoints,
+which keep the one-device format (the slices gathered to full tensors on save,
+with the moments of every param group, sliced again on load).
 """
 
 import dataclasses
@@ -97,16 +98,6 @@ def spec_from_config(config, num_classes, n_active_views, phase='train'):
     )
 
 
-def check_ported_config(config):
-    """Raise for run options whose code is not ported: (E)Pix2Vox under a device
-    mesh (its batch statistics would have to be taken over the global batch,
-    ``models/epix2vox.py::BatchNorm``; ``ROADMAP.md`` queue 1)."""
-    if config.get('mesh_shape') and config.get('model_type') in EPIX2VOX_TYPES:
-        raise NotImplementedError(
-            f"not ported yet: model_type={config['model_type']!r} under "
-            f"mesh_shape={config['mesh_shape']!r} (see ROADMAP.md, queue 1)")
-
-
 def n_active_views_for(config):
     if 'n_active_views' in config and config['n_active_views'] is not None:
         return int(config['n_active_views'])
@@ -166,7 +157,6 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
     ``device``: where the models and batches live; ``None`` is the card, and
     without CUDA only an explicit ``device='cpu'`` runs. Under a ``mesh_shape``
     every rank of the process group calls it; each takes its mesh device."""
-    check_ported_config(config)
     mesh = make_mesh(config.get('mesh_shape'))
     device = mesh.device if mesh is not None else resolve_device(device)
     main_rank = mesh is None or is_main_process()
@@ -227,8 +217,8 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
         log(f"Loaded transform checkpoint from {trans_chk}")
 
     # the mesh, set up on the restored full state as in the JAX runner: the
-    # U-Net's features split over 'model' with AdamW's moments, the ATMs and the
-    # transform optimizer replicated
+    # reconstruction model's features split over 'model' with its optimizer's
+    # moments, the ATMs and the transform optimizer replicated
     split = {}
     if mesh is not None:
         if B % mesh.axis_size('data'):

@@ -30,7 +30,7 @@ from acquisition_focus_tpu_torch.data.cache import load_or_build
 from acquisition_focus_tpu_torch.data.mrxcat import get_dataset_class
 from acquisition_focus_tpu_torch.engine.checkpoint import checkpoint_exists
 from acquisition_focus_tpu_torch.engine.config import DotDict, load_config
-from acquisition_focus_tpu_torch.engine.runner import check_ported_config, run_dl
+from acquisition_focus_tpu_torch.engine.runner import run_dl
 from acquisition_focus_tpu_torch.engine.stages import get_std_stages, merge_stage_config
 from acquisition_focus_tpu_torch.engine.train import resolve_device
 from acquisition_focus_tpu_torch.parallel.mesh import (
@@ -177,7 +177,6 @@ def main(argv=None, *, device=None):
     device = resolve_device(device if device is not None else args.device)
 
     config = load_config(args.config_path, args.meta_config_path)
-    check_ported_config(config)
     n = mesh_processes(config.get('mesh_shape'))
     joined = n > 1 and _join_process_group(device)
     if n > 1 and not joined and device.type == 'cuda' and torch.cuda.device_count() < n:

@@ -16,7 +16,10 @@ start, and the refiner's flatten around its dense layers.
 As in the JAX package: Kaiming-normal initialization instead of ImageNet weights
 (:func:`init_weights`), norms on the current batch's statistics in training and
 evaluation alike (no running averages), and float32 compute whatever the stage's
-``compute_dtype`` (autocast is off inside the model).
+``compute_dtype`` (autocast is off inside the model; it computes in its
+parameters' dtype). On a device mesh the norms'
+statistics are the whole batch's over the 'data' axis (:class:`BatchNorm`), and
+``parallel/feature_parallel.py`` splits the conv and norm pairs over 'model'.
 """
 
 import math
@@ -26,24 +29,37 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.ops.channel_ops import channel_softmax, channel_sum
+from acquisition_focus_tpu_torch.parallel.collectives import batch_norm
 
 
 class BatchNorm(nn.Module):
     """Batch normalization on the current batch's statistics, in training and in
     evaluation: per-channel mean and biased variance over every axis but axis 1,
     in float32 (or wider), eps 1e-5, learned scale (``weight``, init 1) and
-    ``bias`` (init 0)."""
+    ``bias`` (init 0).
+
+    ``group``: the mesh's 'data' process group (set by ``parallel.shard_params``).
+    With more than one rank in it, the batch's rows are split over its ranks and
+    the statistics are the whole batch's, as XLA takes them for the JAX package
+    (``collectives.batch_norm``: two passes, as ``jnp.var``); an evaluation batch
+    that every rank holds whole gets the statistics of its copies, which are its
+    own. Without a group, or in a group of one, it is ``F.batch_norm`` on this
+    rank's rows, so a world of one is the one-device run bit for bit."""
 
     def __init__(self, channels, eps=1e-5):
         super().__init__()
         self.eps = eps
+        self.group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
         dtype = torch.promote_types(x.dtype, torch.float32)
-        y = F.batch_norm(x.to(dtype), None, None, self.weight.to(dtype),
-                         self.bias.to(dtype), training=True, eps=self.eps)
+        xf, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        if self.group is not None and self.group.size() > 1:
+            y = batch_norm(xf, w, b, self.eps, self.group)
+        else:
+            y = F.batch_norm(xf, None, None, w, b, training=True, eps=self.eps)
         return y.to(x.dtype)
 
 
@@ -250,7 +266,8 @@ class EPix2VoxModel128(nn.Module):
 
     def forward(self, views):
         with torch.autocast(views.device.type, enabled=False):
-            raw, coarse = self.decoder(self.encoder(views.float()))
+            views = views.to(self.decoder.head.weight.dtype)
+            raw, coarse = self.decoder(self.encoder(views))
             if self.use_merger:
                 return self.merger(raw, coarse)
             return coarse.mean(dim=1)
@@ -280,15 +297,53 @@ def init_weights(model, generator):
             m.bias.zero_()
 
 
+def _bilinear_matrix(n_in, n_out, device):
+    """(n_out, n_in) weights of ``F.interpolate``'s bilinear resize along one axis
+    (half-pixel centers, no antialiasing): output i from the source position
+    max((i + 0.5) * n_in / n_out - 0.5, 0) between its two neighbours."""
+    src = ((torch.arange(n_out, device=device, dtype=torch.float64) + 0.5)
+           * (n_in / n_out) - 0.5).clamp(min=0.0)
+    lo = src.floor().long()
+    hi = (lo + 1).clamp(max=n_in - 1)
+    frac = src - lo
+    w = torch.zeros(n_out, n_in, device=device, dtype=torch.float64)
+    rows = torch.arange(n_out, device=device)
+    w.index_put_((rows, lo), 1.0 - frac, accumulate=True)
+    w.index_put_((rows, hi), frac, accumulate=True)
+    return w
+
+
+class _Upsample(torch.autograd.Function):
+    """``F.interpolate``'s bilinear upsampling of (..., H, W) to (h, w), whose
+    backward is the product with its weight matrices: CUDA's own backward adds
+    with atomics in no fixed order, so two runs' view gradients would differ."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.shape = x.shape[-2:]
+        return F.interpolate(x, size=size, mode='bilinear', align_corners=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (H, W), (h, w) = ctx.shape, grad.shape[-2:]
+        wh = _bilinear_matrix(H, h, grad.device).to(grad.dtype)
+        ww = _bilinear_matrix(W, w, grad.device).to(grad.dtype)
+        return wh.t() @ grad @ ww, None
+
+
 def epix2vox_interface_input(b_input, n_views, out_hw=224):
     """Slice one-hots (B, V*C, S, S) -> EPix2Vox views (B, V, 3, 224, 224): the
     per-view foreground sum, resized bilinearly (half-pixel centers, antialiased
-    where it shrinks, as ``jax.image.resize`` is), replicated to 3 channels, x255."""
+    where it shrinks, as ``jax.image.resize`` is), replicated to 3 channels, x255.
+    An upsampling's gradient is the same in every run (``_Upsample``)."""
     B, VC, S, S2 = b_input.shape
     C = VC // n_views
     fg = b_input.reshape(B, n_views, C, S, S2)[:, :, 1:].sum(dim=2)  # (B, V, S, S)
-    fg = F.interpolate(fg, size=(out_hw, out_hw), mode='bilinear', align_corners=False,
-                       antialias=max(S, S2) > out_hw)
+    if max(S, S2) > out_hw:
+        fg = F.interpolate(fg, size=(out_hw, out_hw), mode='bilinear',
+                           align_corners=False, antialias=True)
+    else:
+        fg = _Upsample.apply(fg, (out_hw, out_hw))
     return fg[:, :, None].expand(B, n_views, 3, out_hw, out_hw) * 255.0
 
 

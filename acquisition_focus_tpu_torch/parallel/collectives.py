@@ -12,7 +12,9 @@ Feature parallelism over 'model' takes Megatron's two autograd-aware forms:
 
 So every replicated tensor carries the same full gradient on every rank of the
 axis, and each rank's split parameters their exact gradients. Data parallelism
-over 'data' is :func:`sync_gradients` after the accumulation loop.
+over 'data' is :func:`sync_gradients` after the accumulation loop, and, for the
+(E)Pix2Vox batch norms, :func:`batch_norm`: the statistics of the whole
+batch, as XLA takes ``jnp.mean``/``jnp.var`` over a batch axis sharded on 'data'.
 
 Every collective is a functional collective (``torch.ops._c10d_functional``,
 with ``wait_tensor``): dispatcher ops, so the recompute policy of
@@ -37,8 +39,13 @@ def all_reduce_sum(x, group):
 
 
 def all_gather(x, group, dim):
-    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in rank order."""
+    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in rank order. A
+    channels-last ``x`` gathered along its channels (dim 1) stays channels-last,
+    so the ops after the gather take the path they take on one device."""
     n = group.size()
+    if dim == 1 and x.ndim > 2 and not x.is_contiguous() \
+            and x.movedim(1, -1).is_contiguous():
+        return all_gather(x.movedim(1, -1), group, x.ndim - 1).movedim(-1, 1)
     g = _c10d.wait_tensor(_c10d.all_gather_into_tensor(x.contiguous(), n,
                                                        group.group_name))
     if dim == 0:
@@ -51,7 +58,9 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        return x.view_as(x)
+        # a view with x's own strides: view_as resets a size-1 axis's stride, which
+        # can turn a channels-last batch of one into a contiguous conv output
+        return x.as_strided(x.shape, x.stride(), x.storage_offset())
 
     @staticmethod
     def backward(ctx, grad):
@@ -67,6 +76,52 @@ class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad.narrow(1, ctx.index * ctx.width, ctx.width), None
+
+
+class _BatchNorm(torch.autograd.Function):
+    """Batch norm of ``x`` (N, C, ...) whose rows are split over ``group``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        dims = (0,) + tuple(range(2, x.ndim))
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        n = x.numel() // x.shape[1] * group.size()
+        # two passes, as jnp.var: the mean, then the mean squared deviation
+        mean = all_reduce_sum(x.sum(dims), group) / n
+        xc = x - mean.view(shape)
+        var = all_reduce_sum((xc * xc).sum(dims), group) / n
+        rstd = torch.rsqrt(var + eps)
+        xhat = xc * rstd.view(shape)
+        ctx.save_for_backward(xhat, rstd, weight)
+        ctx.group, ctx.n = group, n
+        return xhat * weight.view(shape) + bias.view(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, rstd, weight = ctx.saved_tensors
+        dims = (0,) + tuple(range(2, dy.ndim))
+        shape = (1, -1) + (1,) * (dy.ndim - 2)
+        C = dy.shape[1]
+        # this rank's rows' sums: the scale and bias gradients of its loss
+        local = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        total = all_reduce_sum(local, ctx.group)
+        sum_dy, sum_dy_xhat = total[:C].view(shape), total[C:].view(shape)
+        dx = (weight * rstd).view(shape) / ctx.n * (
+            ctx.n * dy - sum_dy - xhat * sum_dy_xhat)
+        return dx, local[C:], local[:C], None, None
+
+
+def batch_norm(x, weight, bias, eps, group):
+    """Batch normalization of ``x`` (N, C, ...) whose rows are split evenly over
+    ``group`` (the mesh's 'data' axis), on the whole batch's statistics:
+    per-channel mean and biased variance over every axis but 1 and over the
+    ranks, in two passes as ``jnp.var`` (an all-reduce of the sums, then of the
+    squared deviations). Backward all-reduces the per-channel sums of ``dy`` and
+    ``dy * x_hat``, so the input gradient is that of the sum of every rank's
+    loss; the scale and bias gradients are this rank's rows' share, which
+    :func:`sync_gradients` averages over 'data' as every other gradient (the
+    global loss is the mean of the ranks' losses)."""
+    return _BatchNorm.apply(x, weight, bias, eps, group)
 
 
 def copy_to_model(x, group):
@@ -99,7 +154,9 @@ def _flat_sum(tensors, group, keep=True):
 @torch.no_grad()
 def sync_gradients(mesh, modules):
     """After the accumulation loop: every gradient averaged over 'data' (one flat
-    bucket per dtype, summed, divided by the axis size), and the gradients of
+    bucket per dtype, summed, divided by the axis size: the gradient of the mean
+    of the ranks' losses, the whole batch's loss, also where a batch norm over
+    'data' gave each rank's backward the other ranks' terms), and the gradients of
     the parameters that 'model' does not split taken from the axis's first rank
     (they are equal there up to the arithmetic of replicated work; a sum with
     the other ranks' zeros keeps the replicas bit-equal). Parameters without a

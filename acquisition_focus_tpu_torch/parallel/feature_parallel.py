@@ -1,4 +1,6 @@
-"""Feature-sharded stand-ins for the hybrid U-Net's modules (the 'model' axis).
+"""Feature-sharded stand-ins for the reconstruction models' modules (the 'model'
+axis): the hybrid U-Net's stages (:func:`shard_unet`) and (E)Pix2Vox's conv and
+batch-norm pairs (:func:`shard_epix2vox`).
 
 Each stand-in takes its slice from a full module: it adopts the module's own
 parameter objects and narrows their data in place to this rank's contiguous
@@ -22,6 +24,17 @@ of the model run unchanged on replicated tensors. A stage whose width the axis
 does not divide stays the original module, replicated. Parameter names are the
 full model's, so ``state_dict`` keys match; ``engine/checkpoint.py`` gathers the
 slices back to full tensors.
+
+(E)Pix2Vox keeps its forward code: each conv whose output channels the axis
+splits becomes a stand-in that takes its input through ``copy_to_model`` and
+computes this rank's chunk (:class:`ShardedConv`, :class:`ShardedConvTranspose3d`),
+and the ``BatchNorm`` after it one that normalizes that chunk (its statistics
+per channel, over the 'data' group only) and gathers it over 'model'
+(:class:`ShardedBatchNorm`). So every tensor between the pairs is whole and
+replicated: the activations, pooling, the Bottleneck's residual add, the
+encoder's reshape to (B, V, 8, 8, 256), the decoder's concat and the modules
+the rule leaves whole (``l4_conv``/``l4_bn``, the decoder's head, the merger's
+2 -> 1 layer, and at m = 4 its 4 -> 2 layer) run unchanged.
 """
 
 import torch
@@ -29,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.models import recompute
+from acquisition_focus_tpu_torch.models.epix2vox import BatchNorm, Bottleneck, EPix2VoxModel128
 from acquisition_focus_tpu_torch.models.hybrid_unet import (
     DecoderStage, EncoderStage, _norm_act, _same_pad_2d)
 from acquisition_focus_tpu_torch.parallel.collectives import (
@@ -104,35 +118,68 @@ class ShardedGroupedConv2d(nn.Module):
         return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+def _take_bias(module, conv, shard):
+    if conv.bias is None:
+        module.register_parameter('bias', None)
+    else:
+        module.bias = _take(conv.bias, 0, shard)
+
+
 class ShardedConvTranspose3d(nn.Module):
-    """This rank's output-feature chunk of an ``nn.ConvTranspose3d`` (weight axis 1)."""
-
-    def __init__(self, conv, shard):
-        super().__init__()
-        self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
-        self.weight = _take(conv.weight, 1, shard)
-        self.bias = _take(conv.bias, 0, shard)
-
-    def forward(self, x):
-        return F.conv_transpose3d(x, self.weight, self.bias, self.stride, self.padding,
-                                  0, 1, self.dilation)
-
-
-class ShardedConv3d(nn.Module):
-    """This rank's output-channel chunk of an ``nn.Conv3d`` (the 1x1x1 head), its
-    input taken through ``copy_to_model`` and its output gathered."""
+    """This rank's output-feature chunk of an ``nn.ConvTranspose3d`` (weight axis
+    1), its input taken through ``copy_to_model``."""
 
     def __init__(self, conv, shard):
         super().__init__()
         self.group = shard.group
         self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
-        self.weight = _take(conv.weight, 0, shard)
-        self.bias = _take(conv.bias, 0, shard)
+        self.weight = _take(conv.weight, 1, shard)
+        _take_bias(self, conv, shard)
 
     def forward(self, x):
-        y = F.conv3d(copy_to_model(x, self.group), self.weight, self.bias, self.stride,
-                     self.padding, self.dilation, 1)
-        return gather_from_model(y, self.group)
+        return F.conv_transpose3d(copy_to_model(x, self.group), self.weight, self.bias,
+                                  self.stride, self.padding, 0, 1, self.dilation)
+
+
+class ShardedConv(nn.Module):
+    """This rank's output-channel chunk of an ungrouped ``nn.Conv2d`` or
+    ``nn.Conv3d``, its input taken through ``copy_to_model``."""
+
+    def __init__(self, conv, shard):
+        super().__init__()
+        assert conv.groups == 1 and conv.padding_mode == 'zeros'
+        self.group = shard.group
+        self.conv = F.conv2d if isinstance(conv, nn.Conv2d) else F.conv3d
+        self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
+        self.weight = _take(conv.weight, 0, shard)
+        _take_bias(self, conv, shard)
+
+    def forward(self, x):
+        return self.conv(copy_to_model(x, self.group), self.weight, self.bias,
+                         self.stride, self.padding, self.dilation, 1)
+
+
+class ShardedConv3d(ShardedConv):
+    """:class:`ShardedConv` of an ``nn.Conv3d`` (the hybrid U-Net's 1x1x1 head), its
+    output gathered."""
+
+    def forward(self, x):
+        return gather_from_model(super().forward(x), self.group)
+
+
+class ShardedBatchNorm(BatchNorm):
+    """This rank's channel chunk of an (E)Pix2Vox ``BatchNorm``: the norm of the
+    chunk (statistics over the 'data' group, as the module takes them), gathered
+    over 'model'."""
+
+    def __init__(self, norm, shard):
+        nn.Module.__init__(self)
+        self.eps, self.group, self.model_group = norm.eps, norm.group, shard.group
+        self.weight = _take(norm.weight, 0, shard)
+        self.bias = _take(norm.bias, 0, shard)
+
+    def forward(self, x):
+        return gather_from_model(super().forward(x), self.model_group)
 
 
 class ShardedEncoderStage(nn.Module):
@@ -173,7 +220,7 @@ class ShardedDecoderStage(nn.Module):
 
     def forward(self, y, embed_skip):
         g = self.group
-        y = embed_skip(gather_from_model(self.up(copy_to_model(y, g)), g))
+        y = embed_skip(gather_from_model(self.up(y), g))
         with recompute.keep_residuals(self.keep_conv_in):
             y = self.a_conv(copy_to_model(y, g))
         y = gather_from_model(_norm_act(self.a_norm, y), g)
@@ -198,6 +245,65 @@ def shard_unet(unet, split, mesh):
     if _whole(names, split):
         unet.seg_head = ShardedConv3d(unet.seg_head, shard)
     return unet
+
+
+def conv_norm_pairs(model):
+    """(parent, conv name, norm name) of every conv that feeds a ``BatchNorm`` in
+    an (E)Pix2Vox model, in module order: ``convK``/``bnK`` and ``down``/``bn_down``
+    in the Bottlenecks, the stem's ``conv1``/``bn1``, ``lK_conv``/``lK_bn``,
+    ``upK``/``upK_bn`` and ``mK_conv``/``mK_bn``."""
+    for parent in model.modules():
+        children = dict(parent.named_children())
+        for name, child in children.items():
+            if not isinstance(child, BatchNorm):
+                continue
+            conv = next(c for c in (name.replace('bn', 'conv'), name.replace('_bn', ''),
+                                    name.replace('bn_', '')) if c != name and c in children)
+            yield parent, conv, name
+
+
+def shard_epix2vox(model, split, mesh):
+    """Set every ``BatchNorm``'s 'data' group (the whole batch's statistics), then
+    swap each conv and norm pair whose parameters ``split`` names for its
+    stand-ins, in place; a pair, and a Bottleneck, is split whole or not at all.
+    Raises if ``split`` names a parameter outside the swapped pairs."""
+    shard = _Shard(mesh) if 'model' in mesh.shape else None
+    prefix = {m: f'{n}.' if n else '' for n, m in model.named_modules()}
+
+    def names(*modules):
+        return [prefix[m] + n for m in modules for n, _ in m.named_parameters()]
+
+    for m in model.modules():
+        if isinstance(m, Bottleneck):
+            _whole(names(m), split)
+    done = set()
+    for parent, conv_name, norm_name in list(conv_norm_pairs(model)):
+        conv, norm = getattr(parent, conv_name), getattr(parent, norm_name)
+        pair = names(conv, norm)
+        if not _whole(pair, split):
+            continue
+        setattr(parent, conv_name,
+                ShardedConvTranspose3d(conv, shard) if isinstance(conv, nn.ConvTranspose3d)
+                else ShardedConv(conv, shard))
+        setattr(parent, norm_name, ShardedBatchNorm(norm, shard))
+        done.update(pair)
+    if done != set(split):
+        raise ValueError(f"split parameters outside a conv and norm pair: "
+                         f"{sorted(set(split) - done)}")
+    group = mesh.groups['data'] if 'data' in mesh.shape else None
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    return model
+
+
+def shard_model(model, split, mesh):
+    """The reconstruction model's stand-ins for ``mesh``: :func:`shard_epix2vox`
+    for (E)Pix2Vox, :func:`shard_unet` for the hybrid U-Net (whose instance norms
+    are per sample, so only a 'model' split changes it)."""
+    if isinstance(model, EPix2VoxModel128):
+        return shard_epix2vox(model, split, mesh)
+    return shard_unet(model, split, mesh) if split else model
 
 
 def _whole(names, split):

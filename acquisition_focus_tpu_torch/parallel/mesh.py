@@ -7,10 +7,11 @@ GPU per rank; gloo on the CPU. The mesh's axes are the JAX package's:
 * ``data``  -- the batch (and every grad-accum microbatch) is split over it;
   each rank computes its rows, and the gradients are averaged over the axis
   after the accumulation loop (``collectives.sync_gradients``).
-* ``model`` -- feature tensor parallelism of the reconstruction U-Net: every
-  U-Net parameter whose output-feature axis is > 1 and divisible by the axis
-  size is split along it (``feature_split_dims``; ``feature_parallel.py`` holds
-  the modules that compute on such a split). The ATMs stay replicated.
+* ``model`` -- feature tensor parallelism of the reconstruction model (the
+  hybrid U-Net or (E)Pix2Vox): every parameter whose output-feature axis is > 1
+  and divisible by the axis size is split along it (``feature_split_dims``;
+  ``feature_parallel.py`` holds the modules that compute on such a split). The
+  ATMs stay replicated.
 
 Where the JAX package gives the shardings to XLA's SPMD partitioner, the port
 places the collectives itself (``collectives.py``, ``PARITY.md``). The rank
@@ -212,7 +213,8 @@ def _output_feature_dim(module, pname):
 
 
 def feature_split_dims(unet, model_size):
-    """{parameter name: split axis} of the U-Net parameters that a 'model' axis of
+    """{parameter name: split axis} of the reconstruction model's parameters (the
+    hybrid U-Net's or (E)Pix2Vox's) that a 'model' axis of
     ``model_size`` splits: the JAX package's ``_feature_shard_leaf`` (output-feature
     axis > 1 and divisible by the axis size) on each parameter's output-feature
     axis."""
@@ -229,18 +231,19 @@ def shard_params(unet, atms, mesh):
     """Feature tensor parallelism of the reconstruction net over 'model': the
     parameters that ``feature_split_dims`` selects keep this rank's slice (in
     place: the optimizers keep their parameter objects) and the modules that own
-    them compute on it (``feature_parallel.shard_unet``). The ATMs, and the whole
-    U-Net without a 'model' axis, stay replicated (made equal from rank 0).
-    Returns {name: split axis} of the sliced parameters."""
+    them compute on it (``feature_parallel.shard_model``: the hybrid U-Net's
+    stages, or (E)Pix2Vox's conv and norm pairs, whose batch norms also take the
+    whole batch's statistics over 'data'). The ATMs, and the whole model without
+    a 'model' axis, stay replicated (made equal from rank 0). Returns {name:
+    split axis} of the sliced parameters."""
     if mesh is None:
         return {}
-    from acquisition_focus_tpu_torch.parallel.feature_parallel import shard_unet
+    from acquisition_focus_tpu_torch.parallel.feature_parallel import shard_model
     replicate(atms, mesh)
     replicate(unet, mesh)
-    if 'model' not in mesh.shape:
-        return {}
-    split = feature_split_dims(unet, mesh.axis_size('model'))
-    shard_unet(unet, split, mesh)
+    split = feature_split_dims(unet, mesh.axis_size('model')) \
+        if 'model' in mesh.shape else {}
+    shard_model(unet, split, mesh)
     return split
 
 
@@ -252,8 +255,8 @@ def slice_tensor(t, dim, mesh):
 
 def shard_opt_state(opt, module, split, mesh):
     """Slice an optimizer's state of ``module``'s split parameters as the
-    parameters are: AdamW's ``exp_avg``/``exp_avg_sq`` mirror the parameter
-    shapes (the step counts stay). A state already at the slice's shape (or none:
+    parameters are, in every param group: Adam's and AdamW's
+    ``exp_avg``/``exp_avg_sq`` mirror the parameter shapes (the step counts stay). A state already at the slice's shape (or none:
     no step taken) is left. Returns ``opt``."""
     if mesh is None or not split:
         return opt

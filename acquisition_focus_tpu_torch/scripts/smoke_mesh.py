@@ -1,6 +1,7 @@
 """Drive the port's device mesh on several H100s (NCCL, one process per GPU).
 
     python3 -m acquisition_focus_tpu_torch.scripts.smoke_mesh [--device cpu]
+        [--cases unet,epix2vox]
 
 Needs 4 GPUs (``--device cpu``: a rehearsal in gloo processes at a small size,
 without the kernel checks). Run from the repository root: it takes its kernel
@@ -32,7 +33,17 @@ checks and step helpers from ``chip_smoke.py``.
    sweep; the last stage's checkpoint then loads into a one-GPU ``run_dl``
    (test phase) and holds every tensor at its one-device shape.
 
-Any miss raises. The last line is one JSON object with the numbers.
+5. (E)Pix2Vox and Pix2Vox (``--cases epix2vox``; ``check_epix2vox_meshes``):
+   ``config_dict_id21.json``'s ref stage at 128^3, batch 2 x accum 2, TF32 off,
+   on the four meshes against one GPU on the whole batch (a data mesh's batch
+   norms take the whole batch's statistics): the first microbatch's gradients,
+   with the model's parameters in float64 on both sides (``float64_grads``),
+   within EPIX_GRAD_TOL of each leaf's max; in float32, step 0 loss within
+   EPIX_LOSS_TOL (rel.), s/step and peak per rank. Then a {'data': 2} CLI run of
+   id21 (2 epochs) whose checkpoint loads into a one-GPU ``run_dl``.
+
+Sections 1-4 are ``--cases unet``. Any miss raises. The last line is one JSON
+object with the numbers.
 """
 
 import argparse
@@ -58,6 +69,13 @@ MESH_LOSS_TOL = 1e-3           # step 0 loss, relative, bf16
 F32_GRAD_TOL = 1e-4            # float32, TF32 off, per leaf max
 F32_ACT_TOL = 1e-3             # float32: max |activation input - one device's|
 STEPS = 4                      # per mode and mesh, the first a warm-up
+EPIX_TYPES = ('hybrid-EPix2Vox', 'hybrid-Pix2Vox')
+# config_dict_id21.json's ref stage (2 views, binarized, fixed views), float32
+EPIX = dict(base_views=['p2CH', 'p4CH'], use_binarized_labels=True,
+            compute_dtype='float32', view_optimization_mode='opt-none',
+            use_affine_theta=False)
+EPIX_GRAD_TOL = 1e-4           # float64 model, per leaf max, against the whole batch
+EPIX_LOSS_TOL = 1e-5           # step 0 loss, relative
 SMALL = dict(hires_fov_mm=[48.0] * 3, hires_fov_vox=[32] * 3, prescan_fov_mm=[48.0] * 3,
              prescan_fov_vox=[32] * 3, slice_fov_mm=[48.0, 48.0, 1.5],
              slice_fov_vox=[32, 32, 1], compute_dtype='float32',
@@ -164,7 +182,7 @@ def first_grads(spec, unet, atms, batch, mesh=None, blocks=1, branches=None):
                 g = p.grad
                 if mesh is not None and is_split(p):
                     g = model_gather(g, mesh, getattr(p, SPLIT_ATTR))
-                grads[prefix + name] = g.float().cpu()
+                grads[prefix + name] = g.to(torch.promote_types(g.dtype, torch.float32)).cpu()
             p.grad = None
     return grads
 
@@ -224,8 +242,46 @@ def timed_steps(spec, unet, atms, recon, trans, batch, mesh):
 
 
 def spec_for(overrides):
+    """The stage spec of DEFAULTS with ``overrides``: 6 classes (2 under binarized
+    labels), every base view active."""
     from acquisition_focus_tpu_torch.engine.runner import DEFAULTS, spec_from_config
-    return spec_from_config(dict(DEFAULTS, **overrides), 6, 3)
+    config = dict(DEFAULTS, **overrides)
+    return spec_from_config(config, 2 if config['use_binarized_labels'] else 6,
+                            len(config['base_views']))
+
+
+def epix_batch(spec, device):
+    """``chip_smoke.phantom_batch`` (batch 2) with the labels binarized and each
+    view of each sample turned by 6-17 degrees about a random axis (seeded): cut
+    along one plane, two views are equal, and Pix2Vox's merger then weighs them
+    0.5 each whatever its parameters, which take an exactly zero gradient."""
+    batch = chip_smoke().phantom_batch(spec, device)
+    rng = np.random.default_rng(2)
+    lead = tuple(batch['view_affines'].shape[:-2])
+    turns = np.tile(np.eye(4), lead + (1, 1))
+    for idx in np.ndindex(lead):
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        angle = rng.uniform(0.1, 0.3)
+        turns[idx][:3, :3] = np.eye(3) + np.sin(angle) * k + (1 - np.cos(angle)) * k @ k
+    views = batch['view_affines'] @ torch.tensor(turns, dtype=torch.float32, device=device)
+    return dict(batch, label=(batch['label'] > 0).long(), view_affines=views)
+
+
+def float64_grads(spec, unet, atms, batch, mesh=None):
+    """``first_grads`` with the (E)Pix2Vox model's parameters in float64 (it
+    computes in its parameters' dtype; the slices before it stay float32), then
+    back in float32: one device's float32 gradients stray from exact arithmetic
+    by more than the bound a mesh is held to (``encoder.l4_bn.weight`` by half
+    of itself, ``decoder.up2.weight`` by 5e-2 of its max: the batch norms'
+    sums over 128^3 volumes cancel), where float64 leaves a mesh's other
+    summation orders visible alone."""
+    unet.double()
+    grads = first_grads(spec, unet, atms, batch, mesh)
+    unet.float()
+    return grads
 
 
 def run_case(name, overrides, timed, device, mesh=None, branches=None, blocks=(1,)):
@@ -239,7 +295,7 @@ def run_case(name, overrides, timed, device, mesh=None, branches=None, blocks=(1
     cs = chip_smoke()
     spec = spec_for(overrides)
     unet, atms, recon, trans = cs.build_step(spec, device)
-    batch = cs.phantom_batch(spec, device)
+    batch = (epix_batch if spec.model_type in EPIX_TYPES else cs.phantom_batch)(spec, device)
     acts = Branches(branches, mesh)
     grads, norms = {}, {}
     if mesh is not None:
@@ -264,8 +320,10 @@ def run_case(name, overrides, timed, device, mesh=None, branches=None, blocks=(1
 def floor_check(got, ref, tol, floor):
     """Each leaf within ``tol`` of its max (``chip_smoke.grad_deviation``'s scale)
     or within twice ``floor[leaf]``, the one-GPU bf16 step's own distance from its
-    float32 twin. Returns the worst ratio of a leaf's deviation to its allowance,
-    and that leaf."""
+    float32 twin: that distance is the reference's behaviour, not the port's
+    (``tests/test_torch_bf16_parity.py``: on the CPU the JAX package's bf16
+    gradients sit 0.87-1.60 of a leaf's max from float32, the port's 0.29-1.23).
+    Returns the worst ratio of a leaf's deviation to its allowance, and that leaf."""
     top = max(float(g.abs().max()) for g in ref.values())
     worst = (-1.0, '')
     for k, r in ref.items():
@@ -423,9 +481,119 @@ def check_meshes(device, meshes=MESHES, tmp=None):
     return report, single, layouts, failures
 
 
-def run_mesh_sweep(tmp, device, small=False):
-    """Section 4: the CLI sweep on {'data': 2, 'model': 2}, its checkpoints read
-    back, and the last one loaded into a one-device ``run_dl``."""
+def _epix_rank(rank, mesh_shape, device_type, out):
+    import torch.distributed as dist
+    from acquisition_focus_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_params
+    cs = chip_smoke()
+    if device_type == 'cuda':
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(mesh_shape)
+    results = {}
+    for model_type in EPIX_TYPES:
+        spec = spec_for(dict(EPIX, model_type=model_type))
+        unet, atms, recon, trans = cs.build_step(spec, mesh.device)
+        shard_params(unet, atms, mesh)
+        batch = shard_batch(epix_batch(spec, mesh.device), mesh, True)
+        grads = float64_grads(spec, unet, atms, batch, mesh)
+        steps = timed_steps(spec, unet, atms, recon, trans, batch, mesh) \
+            if device_type == 'cuda' else {}
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, steps)
+        results[model_type] = {'grads': grads, 'steps': per_rank}
+        del unet, atms, recon, trans, batch
+        if device_type == 'cuda':
+            torch.cuda.empty_cache()
+    if rank == 0:
+        torch.save(results, out)
+
+
+def check_epix2vox_meshes(device, meshes=MESHES, tmp=None):
+    """(E)Pix2Vox and Pix2Vox (``config_dict_id21.json``'s ref stage: 2 views,
+    binarized, fixed views; full size 128^3, batch 2 x accum 2, TF32 off) on one
+    device, then on each mesh: the first microbatch's gradients in float64
+    (:func:`float64_grads`) within EPIX_GRAD_TOL of each leaf's max
+    (``chip_smoke.grad_deviation``'s scale) of one device's on the whole batch (a
+    data mesh's batch norms take the whole batch's statistics, so it computes
+    the whole batch's gradient); then in float32 step 0's loss within
+    EPIX_LOSS_TOL (rel.), per rank s/step and peak memory. Failures are
+    collected and returned. Returns ({mesh: {model type: numbers}}, one device's
+    numbers, failures)."""
+    from acquisition_focus_tpu_torch.parallel.mesh import mesh_processes, spawn_ranks
+    cs = chip_smoke()
+    refs, failures = {}, []
+    for model_type in EPIX_TYPES:
+        spec = spec_for(dict(EPIX, model_type=model_type))
+        unet, atms, recon, trans = cs.build_step(spec, device)
+        batch = epix_batch(spec, device)
+        grads = float64_grads(spec, unet, atms, batch)
+        steps = timed_steps(spec, unet, atms, recon, trans, batch, None) \
+            if device == 'cuda' else {}
+        refs[model_type] = {'grads': grads, 'steps': steps}
+        log(f"one {device}, {model_type}: "
+            + (f"{steps['s_step']:.4f} s/step, peak {steps['peak']} B, step 0 loss "
+               f"{steps['loss0']!r}" if steps else "no timed steps on the CPU"))
+        del unet, atms, recon, trans, batch
+        if device == 'cuda':
+            torch.cuda.empty_cache()
+    report = {}
+    tmp = Path(tmp or tempfile.mkdtemp(prefix='smoke_mesh_epix_'))
+    for shape in meshes:
+        n, key = mesh_processes(shape), json.dumps(shape)
+        out = tmp / f"epix_{'_'.join(f'{k}{v}' for k, v in shape.items())}.pt"
+        t0 = time.perf_counter()
+        spawn_ranks(_epix_rank, n, args=(shape, device, str(out)),
+                    backend='nccl' if device == 'cuda' else 'gloo',
+                    threads=None if device == 'cuda' else 1)
+        log(f"(E)Pix2Vox mesh {shape}: {n} processes, {time.perf_counter() - t0:.1f} s")
+        results = torch.load(out, weights_only=False)
+        report[key] = {}
+        for model_type in EPIX_TYPES:
+            ref, got = refs[model_type], results[model_type]
+            dev, leaf = cs.grad_deviation(got['grads'], ref['grads'])
+            row = {'grad_dev': dev, 'grad_dev_leaf': leaf, 'grad_tol': EPIX_GRAD_TOL}
+            log(f"  {model_type}: float64 first-microbatch gradient deviation from one "
+                f"{device} (whole batch) {dev:.3e} ({leaf}), tol {EPIX_GRAD_TOL:g}")
+            if not dev <= EPIX_GRAD_TOL:
+                log(f"    worst leaves: {worst_leaves(got['grads'], ref['grads'])}")
+                failures.append(f"(E)Pix2Vox mesh {shape} {model_type}: gradient of {leaf} "
+                                f"deviates {dev:.3e} from one {device}'s")
+            if ref['steps']:
+                ranks = got['steps']
+                loss0 = ref['steps']['loss0']
+                rel = abs(ranks[0]['loss0'] - loss0) / abs(loss0)
+                for r, st in enumerate(ranks):
+                    log(f"    rank {r}: {st['s_step']:.4f} s/step, peak {st['peak']} B")
+                log(f"    step 0 loss {ranks[0]['loss0']!r} (one {device}: {loss0!r}, rel "
+                    f"diff {rel:.3e}, tol {EPIX_LOSS_TOL:g})")
+                if not rel <= EPIX_LOSS_TOL:
+                    failures.append(f"(E)Pix2Vox mesh {shape} {model_type}: step 0 loss "
+                                    f"{ranks[0]['loss0']} vs {loss0}")
+                row.update(loss0=ranks[0]['loss0'], loss0_rel_diff=rel, ranks=ranks)
+            report[key][model_type] = row
+    single = {mt: r['steps'] for mt, r in refs.items()}
+    for f in failures:
+        log(f"FAILED: {f}")
+    return report, single, failures
+
+
+SWEEPS = {   # name: (meta config overrides, stages, what it is)
+    'unet': (dict(use_pallas_conv3d='full', theta_refresh_every=2,
+                  mesh_shape={'data': 2, 'model': 2}),
+             ['opt_view0', 'opt_view1', 'opt_view2', 'ref'],
+             "DEFAULTS with 'full', theta_refresh_every 2"),
+    'epix2vox': (dict(model_type='hybrid-EPix2Vox', base_views=['p2CH', 'p4CH'],
+                      use_binarized_labels=True, stage_override='ref',
+                      mesh_shape={'data': 2}),
+                 ['ref'], "config_dict_id21.json (hybrid-EPix2Vox, p2CH + p4CH, "
+                          "binarized, the ref stage)"),
+}
+
+
+def run_mesh_sweep(tmp, device, small=False, sweep='unet'):
+    """Section 4: a CLI sweep (``SWEEPS[sweep]``: the hybrid U-Net's on {'data': 2,
+    'model': 2}, or (E)Pix2Vox's on {'data': 2}), its checkpoints read back, and
+    the last one loaded into a one-device ``run_dl``."""
     from acquisition_focus_tpu_torch import main as cli
     from acquisition_focus_tpu_torch.data.cache import load_or_build
     from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
@@ -437,15 +605,15 @@ def run_mesh_sweep(tmp, device, small=False):
     data = tmp / 'data'
     write_phantom_dataset(data, n_cases=8, shape=(32 if small else 128,) * 3, n_test=2)
     state_path = tmp / 'sweep_state.json'
-    meta = dict(epochs=2, use_pallas_conv3d='full', theta_refresh_every=2,
-                save_every='best', do_output=True, sweep_state_path=str(state_path),
-                log_dir=str(tmp / 'runs'), mdl_save_prefix=str(tmp / 'models'),
-                dataset=['synthetic', str(data)], fold_override=0, use_caching=False,
-                mesh_shape={'data': 2, 'model': 2}, **(SMALL if small else {}))
+    overrides, stages, what = SWEEPS[sweep]
+    meta = dict(epochs=2, save_every='best', do_output=True,
+                sweep_state_path=str(state_path), log_dir=str(tmp / 'runs'),
+                mdl_save_prefix=str(tmp / 'models'), dataset=['synthetic', str(data)],
+                fold_override=0, use_caching=False, **overrides,
+                **(SMALL if small and sweep == 'unet' else {}))
     (tmp / 'meta.json').write_text(json.dumps(meta))
     log(f"mesh sweep: python -m acquisition_focus_tpu_torch.main on {meta['mesh_shape']}: "
-        f"DEFAULTS with epochs 2, 'full', theta_refresh_every 2, fold 0, 8 phantom "
-        f"cases at {32 if small else 128}^3")
+        f"{what}, epochs 2, fold 0, 8 phantom cases at {32 if small else 128}^3")
     if device == 'cuda':
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -453,8 +621,7 @@ def run_mesh_sweep(tmp, device, small=False):
     cli.main(['--meta_config_path', str(tmp / 'meta.json'), '--base_dir', str(tmp)],
              device=device)
     sweep_s = time.perf_counter() - t0
-    completed, keys, epochs_total = cs.check_sweep(
-        state_path, tmp / 'runs', ['opt_view0', 'opt_view1', 'opt_view2', 'ref'])
+    completed, keys, epochs_total = cs.check_sweep(state_path, tmp / 'runs', stages)
     log(f"  CLI run (build + spawn + sweep) {sweep_s:.1f} s, epochs {epochs_total:.3f} s")
 
     config = load_config(None, tmp / 'meta.json')
@@ -499,7 +666,13 @@ def interconnect():
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--device', default='cuda', choices=('cuda', 'cpu'))
+    parser.add_argument('--cases', default='unet,epix2vox',
+                        help="comma-separated: 'unet' (the hybrid U-Net's kernels, "
+                             "steps and sweep), 'epix2vox' ((E)Pix2Vox's steps and sweep)")
     args = parser.parse_args(argv)
+    cases_run = set(args.cases.split(','))
+    if not cases_run <= {'unet', 'epix2vox'}:
+        parser.error(f"--cases: unknown {sorted(cases_run - {'unet', 'epix2vox'})}")
     need = max(math.prod(m.values()) for m in MESHES)
     if args.device == 'cuda':
         if not torch.cuda.is_available() or torch.cuda.device_count() < need:
@@ -520,24 +693,36 @@ def main(argv=None):
         t0 = time.perf_counter()
         _lib.library()
         log(f"kernel build + load: {time.perf_counter() - t0:.2f} s")
-        cs = chip_smoke()
-        chk = cs.Checker()
-        cs.check_conv3d(chk, np.random.default_rng(5), CONVS_MESH, MESH)
-        cs.check_conv3d_grads(chk, CONVS_MESH, MESH)
-        kernels = {k + MESH: chk.rows[k + MESH]
-                   for k in ('conv3d_fwd', 'conv3d_dx', 'conv3d_wgrad')}
-        torch.cuda.empty_cache()
+        kernels = {}
+        if 'unet' in cases_run:
+            cs = chip_smoke()
+            chk = cs.Checker()
+            cs.check_conv3d(chk, np.random.default_rng(5), CONVS_MESH, MESH)
+            cs.check_conv3d_grads(chk, CONVS_MESH, MESH)
+            kernels = {k + MESH: chk.rows[k + MESH]
+                       for k in ('conv3d_fwd', 'conv3d_dx', 'conv3d_wgrad')}
+            torch.cuda.empty_cache()
     else:
         smi, kernels = 'cpu', {}
+    result, failures = {}, []
     with tempfile.TemporaryDirectory(prefix='smoke_mesh_') as tmp:
-        report, single, layouts, failures = check_meshes(args.device, tmp=tmp)
-        sweep = run_mesh_sweep(Path(tmp) / 'sweep', args.device,
-                               small=args.device == 'cpu')
+        if 'unet' in cases_run:
+            report, single, layouts, fails = check_meshes(args.device, tmp=tmp)
+            failures += fails
+            result.update(one_device=single, one_device_layouts=layouts, meshes=report,
+                          sweep=run_mesh_sweep(Path(tmp) / 'sweep', args.device,
+                                               small=args.device == 'cpu'))
+        if 'epix2vox' in cases_run:
+            report, single, fails = check_epix2vox_meshes(args.device, tmp=tmp)
+            failures += fails
+            result.update(epix2vox_one_device=single, epix2vox_meshes=report,
+                          epix2vox_sweep=run_mesh_sweep(
+                              Path(tmp) / 'epix_sweep', args.device,
+                              small=args.device == 'cpu', sweep='epix2vox'))
     if failures:
         raise AssertionError(f"{len(failures)} mesh check(s) failed: {failures}")
     log(smi)
-    log(json.dumps({'ok': True, 'device': smi, 'kernels': kernels, 'one_device': single,
-                    'one_device_layouts': layouts, 'meshes': report, 'sweep': sweep}))
+    log(json.dumps({'ok': True, 'device': smi, 'kernels': kernels, **result}))
     return 0
 
 

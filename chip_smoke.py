@@ -83,13 +83,22 @@
    collective at world size 1, every U-Net module its sharded stand-in): the
    logged losses and scores and the epoch's checkpoint (parameters, both
    optimizers' states) bit-equal to the unmeshed run's; every kernel must launch
-   in the mesh runs. With two or more cards it also runs ``scripts/smoke_mesh``'s
+   in the mesh runs. The same three runs of (E)Pix2Vox (``config_dict_id21.json``'s
+   model keys: hybrid-EPix2Vox, p2CH + p4CH, binarized labels; the opt-all
+   localization nets; TF32 on, cuDNN's deterministic algorithms): bit-equal, K2
+   launching (its counts are their own path, ``epix2vox_mesh_world_of_one``).
+   With two or more cards it also runs ``scripts/smoke_mesh``'s
    gradient checks on the meshes that fit (the four-card proof is ``python3 -m
    acquisition_focus_tpu_torch.scripts.smoke_mesh``). The phase prints which.
+8c. The orbax import: whether ``tensorstore`` imports on this machine, and one
+   float32 ``train_step`` from ``tests/torch_data/orbax_run.pt`` (the port's file
+   that ``scripts/import_orbax.py`` wrote from a JAX ``run_dl`` pause of a tiny
+   spec): its loss within 1e-4 (rel.) of the JAX package's, committed beside it.
 9. The last line is {"ok": true, "device": {...}}; the line before it lists the
    kernels as JSON: launches during the CLI run (``launches``; per path in
-   ``launches_by_path``: the hybrid-unet sweep, the (E)Pix2Vox sweep and the
-   from-segmented sweep; K2's row also holds ``prescan32``, its check at the
+   ``launches_by_path``: the hybrid-unet sweep, the (E)Pix2Vox sweep, the
+   from-segmented sweep, and the mesh phase's world-of-one runs of the hybrid
+   U-Net and of (E)Pix2Vox; K2's row also holds ``prescan32``, its check at the
    from-segmented prescan shape, and the rows of K1, K3 and K4 ``from_segmented``,
    their checks at that sweep's two-view shapes; ``max_abs_err`` is the largest
    over all of a kernel's shapes) and per
@@ -1608,34 +1617,22 @@ def run_from_segmented(tmp, data):
             'reference': ref}
 
 
-def run_mesh(tmp, datasets):
-    """The device mesh on this card: ``run_dl`` at full width (one epoch,
-    ``'full'``, fold 0 of the build's cases: 4 train, 2 val, 2 test) without a
-    mesh, then in an NCCL process group of one rank on {'data': 1} (the gradient
-    all-reduce over 'data') and on {'model': 1} (every U-Net module its sharded
-    stand-in, every collective at world size 1): the losses and scores in
-    ``metrics.jsonl`` and the epoch's checkpoint bit-equal to the unmeshed run's.
-    The kernel counts are set to 0 just before the mesh runs and read just after;
-    every kernel must have launched. With two or more cards, ``smoke_mesh``'s
-    gradient checks on the meshes that fit. Returns the mesh runs' launches."""
+def world_of_one(tmp, name, config, fold, train, test):
+    """``run_dl`` of ``config`` (one epoch, saved) without a mesh, then in an NCCL
+    process group of one rank on {'data': 1} (the gradient all-reduce over
+    'data', and for (E)Pix2Vox the batch norms given their group) and on
+    {'model': 1} (every module the rule splits its sharded stand-in, every
+    collective at world size 1): the losses and scores in ``metrics.jsonl`` and
+    the epoch's checkpoint bit-equal to the unmeshed run's. The kernel counts
+    are set to 0 just before the mesh runs and read just after. Returns them."""
     import torch.distributed as dist
     from acquisition_focus_tpu_torch.engine.checkpoint import load_checkpoint
-    from acquisition_focus_tpu_torch.engine.runner import load_config, run_dl
-    from acquisition_focus_tpu_torch.main import build_fold_iter
+    from acquisition_focus_tpu_torch.engine.runner import run_dl
     from acquisition_focus_tpu_torch.ops.kernels import _lib
-    from acquisition_focus_tpu_torch.parallel.mesh import free_port, mesh_processes
-    train, test = datasets
-    config = load_config(overrides=dict(
-        epochs=1, use_pallas_conv3d='full', save_every=1, do_output=False,
-        use_caching=False, log_dir=str(tmp / 'mesh_runs'),
-        mdl_save_prefix=str(tmp / 'mesh_models')))
-    fold = build_fold_iter(dict(config, fold_override=0), train)[0]
+    from acquisition_focus_tpu_torch.parallel.mesh import free_port
     runs = {'no mesh': None, "{'data': 1}": {'data': 1}, "{'model': 1}": {'model': 1}}
-    log(f"mesh: run_dl, 1 epoch, 'full', fold 0 ({len(fold[1][0])} train, "
-        f"{len(fold[1][1])} val, {len(test)} test cases), without a mesh, then in an "
-        f"NCCL process group of one rank on {list(runs)[1:]}")
     seconds = {}
-    for i, (name, shape) in enumerate(runs.items()):
+    for i, (label, shape) in enumerate(runs.items()):
         if i == 1:
             dist.init_process_group('nccl', init_method=f'tcp://localhost:{free_port()}',
                                     rank=0, world_size=1)
@@ -1643,19 +1640,16 @@ def run_mesh(tmp, datasets):
             _lib.reset_launch_counts()
         t0 = time.perf_counter()
         run_dl(str(tmp), dict(config, mesh_shape=shape), fold, training_dataset=train,
-               test_dataset=test, run_name=f'mesh{i}')
+               test_dataset=test, run_name=f'{name}{i}')
         torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
+        seconds[label] = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
     dist.destroy_process_group()
     log(f"  run_dl seconds {seconds}; kernel launches in the mesh runs: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched in the mesh runs: {missing}")
 
     def logged(i):
         recs = [json.loads(line) for line in
-                (tmp / 'mesh_runs' / f'mesh{i}' / 'metrics.jsonl').read_text().splitlines()]
+                (tmp / 'mesh_runs' / f'{name}{i}' / 'metrics.jsonl').read_text().splitlines()]
         return [(r['step'], k, v) for r in recs for k, v in sorted(r.items())
                 if k.startswith(('losses/', 'scores/'))]
 
@@ -1668,18 +1662,75 @@ def run_mesh(tmp, datasets):
         return {}
 
     ref_log = logged(0)
-    ref_ck = tensors(load_checkpoint(tmp / 'mesh_models' / 'mesh0_epx0'))
-    for i, name in list(enumerate(runs))[1:]:
-        got = tensors(load_checkpoint(tmp / 'mesh_models' / f'mesh{i}_epx0'))
+    ref_ck = tensors(load_checkpoint(tmp / 'mesh_models' / f'{name}0_epx0'))
+    for i, label in list(enumerate(runs))[1:]:
+        got = tensors(load_checkpoint(tmp / 'mesh_models' / f'{name}{i}_epx0'))
         differ = [k for k in ref_ck if k not in got or not torch.equal(ref_ck[k], got[k])]
-        same_log = logged(i) == ref_log
-        log(f"  {name}: {len(ref_log)} logged losses and scores bit-equal to the unmeshed "
-            f"run's: {same_log}; checkpoint tensors {len(ref_ck)}, differing {len(differ)}"
-            f" {differ[:3]}")
+        got_log = logged(i)
+        same_log = got_log == ref_log
+        log(f"  {label}: {len(ref_log)} logged losses and scores bit-equal to the "
+            f"unmeshed run's: {same_log}; checkpoint tensors {len(ref_ck)}, differing "
+            f"{len(differ)} {differ[:3]}")
+        if not same_log:
+            log(f"    first logged values that differ: "
+                f"{[(a, b) for a, b in zip(ref_log, got_log) if a != b][:4]}")
         if not same_log or differ or got.keys() != ref_ck.keys():
-            raise AssertionError(f"mesh {name} on one card is not the unmeshed run")
+            raise AssertionError(f"{name}: mesh {label} on one card is not the unmeshed run")
     for i in range(len(runs)):
-        (tmp / 'mesh_models' / f'mesh{i}_epx0').unlink()
+        (tmp / 'mesh_models' / f'{name}{i}_epx0').unlink()
+    return launches
+
+
+def binarized(dataset, config):
+    """``dataset``'s cases with their labels binarized, as a build under
+    ``use_binarized_labels`` makes them (foreground = every class but 0)."""
+    return type(dataset).from_cases(
+        {cid: dict(case, label=(case['label'] > 0).astype(case['label'].dtype))
+         for cid, case in dataset.cases.items()}, config, dataset.state)
+
+
+def run_mesh(tmp, datasets):
+    """The device mesh on this card, for the hybrid U-Net and for (E)Pix2Vox
+    (``world_of_one``, each path's counts set to 0 just before its mesh runs and
+    read just after): ``run_dl`` at full width (one epoch, fold 0 of the build's
+    cases: 4 train, 2 val, 2 test) under ``'full'``, every kernel launching; then
+    the model keys of ``config_dict_id21.json`` (hybrid-EPix2Vox, p2CH + p4CH,
+    binarized labels; DEFAULTS' opt-all localization nets, so K2 launches, and the
+    port's default TF32 for cuDNN), with cuDNN's deterministic algorithms, as CUDA
+    may otherwise sum in another order from one run to the next. With two or
+    more cards, ``smoke_mesh``'s gradient checks on the meshes that fit. Returns
+    {path: the mesh runs' launches}."""
+    from acquisition_focus_tpu_torch.engine.runner import load_config
+    from acquisition_focus_tpu_torch.main import build_fold_iter
+    from acquisition_focus_tpu_torch.parallel.mesh import mesh_processes
+    train, test = datasets
+    common = dict(epochs=1, save_every=1, do_output=False, use_caching=False,
+                  log_dir=str(tmp / 'mesh_runs'), mdl_save_prefix=str(tmp / 'mesh_models'))
+    config = load_config(overrides=dict(common, use_pallas_conv3d='full'))
+    fold = build_fold_iter(dict(config, fold_override=0), train)[0]
+    log(f"mesh: run_dl, 1 epoch, 'full', fold 0 ({len(fold[1][0])} train, "
+        f"{len(fold[1][1])} val, {len(test)} test cases), without a mesh, then in an "
+        f"NCCL process group of one rank on {{'data': 1}} and {{'model': 1}}")
+    launches = {'mesh_world_of_one': world_of_one(tmp, 'mesh', config, fold, train, test)}
+    missing = [k for k, n in launches['mesh_world_of_one'].items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the mesh runs: {missing}")
+
+    epix = load_config(overrides=dict(common, model_type='hybrid-EPix2Vox',
+                                      base_views=['p2CH', 'p4CH'],
+                                      use_binarized_labels=True))
+    log("mesh, (E)Pix2Vox: run_dl as above with config_dict_id21.json's model keys "
+        "(hybrid-EPix2Vox, p2CH + p4CH, binarized), batch 2 x accum 2, opt-all "
+        "locnets, TF32 on, cuDNN deterministic")
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, True
+    try:
+        launches['epix2vox_mesh_world_of_one'] = world_of_one(
+            tmp, 'epix_mesh', epix, fold, binarized(train, epix), binarized(test, epix))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
+    if launches['epix2vox_mesh_world_of_one']['volume_resample'] <= 0:
+        raise AssertionError("K2 (volume_resample) not launched in the (E)Pix2Vox mesh runs")
 
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -1693,6 +1744,57 @@ def run_mesh(tmp, datasets):
     if failures:
         raise AssertionError(f"smoke_mesh's checks failed: {failures}")
     return launches
+
+
+ORBAX_DATA = Path(__file__).resolve().parent / 'tests' / 'torch_data'
+
+
+def orbax_fixture_step(data_dir, device):
+    """One float32 ``train_step`` of the port from ``orbax_run.pt``, the port's
+    file that ``scripts/import_orbax.py`` wrote from a JAX ``run_dl`` pause of a
+    tiny spec (``tests/test_torch_orbax_import.py::write_orbax_fixture``): the
+    models and both optimizers restored as ``run_dl`` restores them, on the
+    committed batch. Returns the step's loss and the JAX package's on it."""
+    from acquisition_focus_tpu_torch.engine import checkpoint, train
+    from acquisition_focus_tpu_torch.engine.optimizers import (
+        make_reconstruction_optimizer, make_transform_optimizer)
+    from acquisition_focus_tpu_torch.engine.runner import load_config, spec_from_config
+    data_dir = Path(data_dir)
+    meta = json.loads((data_dir / 'orbax_run.json').read_text())
+    config = load_config(overrides=meta['config'])
+    spec = spec_from_config(config, meta['num_classes'], len(config['base_views']))
+    unet, atms = train.make_models(spec, device)
+    ck = checkpoint.load_checkpoint(data_dir / 'orbax_run.pt')
+    unet.load_state_dict(ck['unet'])
+    atms.load_state_dict(ck['atms'])
+    recon = make_reconstruction_optimizer(unet.parameters(), config['lr'], 2)
+    trans = make_transform_optimizer(atms.parameters(), config['lr'], config['epochs'], 2)
+    checkpoint.load_optimizer(*recon, unet, ck['recon_opt'], ck['recon_sched'])
+    checkpoint.load_optimizer(*trans, atms, ck['trans_opt'], ck['trans_sched'])
+    with np.load(data_dir / 'orbax_batch.npz') as b:
+        batch = {k: torch.as_tensor(b[k], device=device) for k in b.files}
+    loss = float(train.train_step(spec, unet, atms, recon, trans, batch)['loss'])
+    return loss, meta['jax_loss']
+
+
+def check_orbax_import():
+    """Whether ``tensorstore`` (which reads the JAX package's orbax directories)
+    imports here; then one float32 step on the card from the committed import of
+    a JAX ``run_dl`` pause (``orbax_fixture_step``, TF32 off): its loss within
+    1e-4 (rel.) of the JAX package's on the same state and batch."""
+    try:
+        import tensorstore  # noqa: F401
+        have = f"yes ({tensorstore.__version__})"
+    except ImportError as e:
+        have = f"no ({e})"
+    log(f"orbax import: tensorstore imports on this machine: {have}")
+    loss, ref = orbax_fixture_step(ORBAX_DATA, 'cuda')
+    rel = abs(loss - ref) / abs(ref)
+    log(f"  one float32 train_step from tests/torch_data/orbax_run.pt (imported from a "
+        f"JAX run_dl pause): loss {loss!r}, JAX {ref!r}, rel diff {rel:.3e} (tol 1e-4)")
+    if not rel <= 1e-4:
+        raise AssertionError(f"the imported JAX state's step loss {loss} vs JAX {ref}")
+    return {'tensorstore': have, 'loss': loss, 'jax_loss': ref, 'rel_diff': rel}
 
 
 def log_clocks(when):
@@ -1754,6 +1856,7 @@ def main():
     epix = run_epix2vox_steps()
     check_epix2vox_reference()
     check_small_reference()
+    check_orbax_import()
 
     sources = {
         'plane_resample_fwd': ('acquisition_focus_tpu_torch/csrc/plane_resample.cu',
@@ -1775,7 +1878,8 @@ def main():
                 'launches_by_path': {'sweep': launches[name],
                                      'epix2vox_sweep': epix_launches[name],
                                      'from_segmented_sweep': fs['launches'][name],
-                                     'mesh_world_of_one': mesh_launches[name]},
+                                     **{path: counts[name]
+                                        for path, counts in mesh_launches.items()}},
                 'launches_per_step': {
                     **{m: r['launches'][name] / STEPS for m, r in (('fwd', fwd),
                                                                     ('full', full))},

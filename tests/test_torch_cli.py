@@ -26,7 +26,7 @@ from acquisition_focus_tpu_torch.data.mmwhs import MMWHSDataset
 from acquisition_focus_tpu_torch.data.mrxcat import MRXCATDataset
 from acquisition_focus_tpu_torch.data.synthetic import write_phantom_dataset
 from acquisition_focus_tpu_torch.engine.config import load_config
-from acquisition_focus_tpu_torch.engine.runner import check_ported_config, spec_from_config
+from acquisition_focus_tpu_torch.engine.runner import spec_from_config
 from acquisition_focus_tpu_torch.engine.stages import get_std_stages, merge_stage_config
 from acquisition_focus_tpu_torch.engine.train import make_models
 from acquisition_focus_tpu_torch.utils import results as tresults
@@ -198,7 +198,6 @@ def _build_specs(meta_path, segmenter=None):
     config['locnet_width'] = 4
     config['segment_model_path'] = segmenter
     num_classes = 2 if config.get('use_binarized_labels') else 6
-    check_ported_config(config)
     built = 0
     with warnings.catch_warnings():
         warnings.simplefilter('ignore')     # unchained opt_view stages warn

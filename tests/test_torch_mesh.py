@@ -12,8 +12,9 @@ rank functions in ``torch_mesh_workers.py``, which imports no JAX.
   same mesh, from converted flax params (one JAX compile), at
   ``test_torch_train_step.py``'s tolerance.
 * ``run_dl`` under {'data': 2} at 16^3 against ``run_dl`` in one process, and
-  checkpoints resumed both ways; the CLI on a mesh with ``--device cpu``; the
-  options a mesh refuses.
+  checkpoints resumed both ways; the CLI on a mesh with ``--device cpu``; a mesh
+  larger than the process group. (E)Pix2Vox on a mesh:
+  ``test_torch_epix2vox_mesh*.py``.
 """
 
 import json
@@ -378,16 +379,6 @@ def test_mesh_larger_than_the_processes_raises(worlds):
     assert 'needs 4 processes' in worlds['mesh_error']
     with pytest.raises(RuntimeError, match='no process group'):
         run_dl('.', dict(DEFAULTS, mesh_shape={'data': 2}), (0, ([], [])), device='cpu')
-
-
-@pytest.mark.parametrize('model_type', ['hybrid-EPix2Vox', 'hybrid-Pix2Vox'])
-def test_epix2vox_under_a_mesh_raises(tmp_path, model_type):
-    cfg = dict(DEFAULTS, mesh_shape={'data': 2}, model_type=model_type)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        run_dl('.', cfg, (0, ([], [])), device='cpu')
-    (tmp_path / 'meta.json').write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tmain.main(['--meta_config_path', str(tmp_path / 'meta.json')], device='cpu')
 
 
 def test_cli_joins_an_existing_process_group(worlds):

@@ -7,6 +7,9 @@ JAX package's (``acquisition_focus_tpu/parallel/mesh.py``), with no process grou
   virtual devices, named through ``convert.unet_state_dict`` and split along the
   torch axis that holds flax's output-feature axis (axis 1 of a ConvTranspose3d
   weight, axis 0 of everything else);
+* the same of (E)Pix2Vox and Pix2Vox (``config_dict_id21.json``'s model keys):
+  the port's conv and norm pairs swapped for their stand-ins exactly where the
+  rule splits them;
 * ``batch_shardings`` gives JAX's split axis for every key, train and eval;
 * a grouped conv's output-channel slices, computed one group piece at a time,
   are the grouped conv's.
@@ -26,7 +29,7 @@ from acquisition_focus_tpu.engine import runner as jrunner
 from acquisition_focus_tpu.engine import train as jtrain
 from acquisition_focus_tpu.engine.config import DEFAULTS
 from acquisition_focus_tpu.parallel import mesh as jmesh
-from acquisition_focus_tpu_torch.convert import unet_state_dict
+from acquisition_focus_tpu_torch.convert import epix2vox_state_dict, unet_state_dict
 from acquisition_focus_tpu_torch.engine import train as ttrain
 from acquisition_focus_tpu_torch.engine.runner import spec_from_config
 from acquisition_focus_tpu_torch.parallel import feature_parallel as fp
@@ -38,7 +41,7 @@ def fake_mesh(shape, index=0):
     """A Mesh with no process group: enough for the rules and the slicing."""
     return Mesh(shape=dict(shape), device_mesh=None,
                 coords={k: index if k == 'model' else 0 for k in shape},
-                groups={'model': None}, device=torch.device('cpu'))
+                groups={'model': None, 'data': None}, device=torch.device('cpu'))
 
 
 @pytest.fixture(scope='module')
@@ -48,17 +51,18 @@ def jax_unet_zeros():
     return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
 
 
-def jax_split(tree):
-    """{port name: torch split axis} of the leaves of a flax U-Net tree whose
-    sharding names 'model': each leaf replaced by a marker of its rank whose
-    last (output-feature) axis has length 2 and, where split, a 1 in it; the
-    conversion puts that axis where the port holds it."""
+def jax_split(tree, convert=unet_state_dict):
+    """{port name: torch split axis} of the leaves of a flax U-Net (or, with
+    ``convert=epix2vox_state_dict``, (E)Pix2Vox) tree whose sharding names 'model':
+    each leaf replaced by a marker of its rank whose last (output-feature) axis
+    has length 2 and, where split, a 1 in it; the conversion puts that axis where
+    the port holds it."""
     def marker(leaf):
         m = np.zeros((1,) * (leaf.ndim - 1) + (2,), np.float32)
         if any(ax == 'model' for ax in leaf.sharding.spec):
             m[..., 1] = 1.0
         return m
-    converted = unet_state_dict(jax.tree_util.tree_map(marker, tree))
+    converted = convert(jax.tree_util.tree_map(marker, tree))
     return {k: v.shape.index(2) for k, v in converted.items() if float(v.sum()) > 0}
 
 
@@ -164,3 +168,38 @@ def test_group_pieces():
     assert fp.group_pieces(24, 48, 16, 6) == [(0, 8, 6, 12, 1), (8, 24, 12, 18, 1)]
     assert fp.group_pieces(0, 48, 16, 6) == [(0, 48, 0, 18, 3)]
     assert fp.group_pieces(12, 24, 16, 6) == [(0, 4, 0, 6, 1), (4, 12, 6, 12, 1)]
+
+
+EPIX = dict(base_views=['p2CH', 'p4CH'], use_binarized_labels=True)
+
+
+@pytest.mark.parametrize('model_type', ['hybrid-EPix2Vox', 'hybrid-Pix2Vox'])
+@pytest.mark.parametrize('m', [2, 4])
+def test_epix2vox_param_split_matches_jax(m, model_type):
+    """The JAX package's ``shard_params`` rule, which ``feature_split_dims`` already
+    implements, applied to ``EPix2VoxModel128``: the same leaves split along the
+    torch axis of flax's output features; then ``shard_epix2vox`` swaps every split
+    conv and norm pair for its stand-ins and leaves the rest (``l4_conv``/``l4_bn``,
+    the decoder's head, the merger's 2 -> 1 layer, at m = 4 its 4 -> 2 layer)."""
+    config = dict(DEFAULTS, model_type=model_type, **EPIX)
+    spec = jrunner.spec_from_config(config, 2, 2)
+    shapes = jax.eval_shape(lambda: jtrain.init_params(spec, jax.random.key(0)))
+    up, ap = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    unet_params, _ = jmesh.shard_params(up, ap, jmesh.make_mesh({'data': 8 // m,
+                                                                 'model': m}))
+    want = jax_split(unet_params, epix2vox_state_dict)
+    with torch.device('meta'):
+        model, _ = ttrain.make_models(spec_from_config(config, 2, 2), 'meta')
+    got = feature_split_dims(model, m)
+    assert got == want
+    assert got['decoder.up0.weight'] == 1 and 'decoder.head.weight' not in got
+    assert not any(n.startswith(('encoder.l4_', 'merger.m4_')) for n in got)
+    assert ('merger.m3_conv.weight' in got) == (m == 2)
+    from acquisition_focus_tpu_torch.models.epix2vox import BatchNorm
+    fp.shard_epix2vox(model, got, fake_mesh({'data': 8 // m, 'model': m}))
+    norms = {n: type(mod) for n, mod in model.named_modules() if isinstance(mod, BatchNorm)}
+    sharded = {n for n, t in norms.items() if t is fp.ShardedBatchNorm}
+    assert sharded == {n.rsplit('.', 1)[0] for n in got if '_bn.' in n or '.bn' in n}
+    assert all(isinstance(dict(model.named_modules())[n.rsplit('.', 1)[0]],
+                          (fp.ShardedConv, fp.ShardedConvTranspose3d, fp.ShardedBatchNorm))
+               for n in got)

@@ -3,11 +3,16 @@
 JAX package's own ``save_checkpoint`` (one zarr3 case by orbax directly, which
 the JAX package never writes) and read back without JAX: the tree, the params
 through ``convert.py``, both optimizers' moments and counts, a run that resumes
-in the port's ``run_dl`` from a JAX pause, and a segmenter.
+in the port's ``run_dl`` from a JAX pause, and a segmenter. The card's machine
+may lack ``tensorstore``, so ``tests/torch_data/orbax_run.*`` carries one import
+there (``chip_smoke.py``); a case here writes it again and holds the committed
+files to it.
 """
 
+import json
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,8 +22,11 @@ import torch
 
 from acquisition_focus_tpu.engine import optimizers as jopt
 from acquisition_focus_tpu.engine import train as jtrain
+from acquisition_focus_tpu.engine.checkpoint import load_checkpoint as jload_checkpoint
 from acquisition_focus_tpu.engine.checkpoint import save_checkpoint as jsave
+from acquisition_focus_tpu.engine.config import load_config as jload_config
 from acquisition_focus_tpu.engine.runner import run_dl as jrun_dl
+from acquisition_focus_tpu.engine.runner import spec_from_config as jspec_from_config
 from acquisition_focus_tpu.models.segmentation.unet2d import SegUnet2D as JSegUnet2D
 from acquisition_focus_tpu_torch.convert import (
     atm_state_dicts, epix2vox_state_dict, segunet_state_dict, unet_state_dict)
@@ -336,3 +344,84 @@ def test_jax_segmenter_directory_segments_as_its_torch_file(tmp_path):
                                      device='cpu')(vol) for name in ('seg', 'seg.pt'))
     assert got.shape == (16,) * 3 and torch.equal(got, ref)
     assert len(torch.unique(ref)) > 1
+
+
+# ---------------------------------------------------------------- the card's fixture
+
+ORBAX_DATA = Path(__file__).parent / 'torch_data'
+ORBAX_CONFIG = dict(RUN, epochs=2, stop_at_epoch=1, do_augment_input_orientation=False,
+                    base_features=[2, 4, 4], use_affine_theta=True)
+
+
+def write_orbax_fixture(out_dir, work_dir):
+    """The test data ``chip_smoke.py`` loads on the card, where no JAX package
+    runs: a JAX ``run_dl`` of the tiny spec pauses after epoch 0 and its orbax
+    ``_pause`` directory is imported by ``python -m
+    acquisition_focus_tpu_torch.scripts.import_orbax`` into ``orbax_run.pt``; a
+    batch (``orbax_batch.npz``) and, in ``orbax_run.json``, the run's config
+    overrides, the class count and the JAX package's step loss on that batch
+    from the paused state (the mean microbatch loss, before the update)."""
+    out_dir, work_dir = Path(out_dir), Path(work_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = trunner.load_config(overrides=RUN)
+    train = BaseDataset.from_cases(phantom_cases(6, (16,) * 3, (1.5,) * 3, 2), cfg)
+    pause = jrun_dl(str(work_dir), run_config(work_dir, **{
+        k: v for k, v in ORBAX_CONFIG.items() if k not in RUN or RUN[k] != v}),
+        (0, ([0, 1], [])), training_dataset=train, run_name='jax')
+    out = subprocess.run([sys.executable, '-m', 'acquisition_focus_tpu_torch.scripts.'
+                          'import_orbax', pause, str(out_dir / 'orbax_run.pt')],
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    config = jload_config(overrides=ORBAX_CONFIG)
+    spec = jspec_from_config(config, len(train.label_tags), len(config['base_views']))
+    batch = make_batch(spec, np.random.default_rng(BATCH_SEED))
+    np.savez(out_dir / 'orbax_batch.npz', **batch)
+    params = jload_checkpoint(pause)
+    unet_j, atms_j = jtrain.make_models(spec)
+    losses = [float(jtrain.forward(spec, unet_j, params['unet_params'], atms_j,
+                                   params['atm_params'],
+                                   {k: jnp.asarray(v[i]) for k, v in batch.items()},
+                                   None, train=True)[0])
+              for i in range(spec.num_grad_accum_steps)]
+    (out_dir / 'orbax_run.json').write_text(json.dumps(dict(
+        config=ORBAX_CONFIG, num_classes=len(train.label_tags),
+        jax_loss=float(np.mean(losses))), indent=1) + '\n')
+
+
+def test_committed_orbax_fixture_is_regenerated(tmp_path):
+    """``tests/torch_data/orbax_run.*``, which ``chip_smoke.py`` loads on the card,
+    is what :func:`write_orbax_fixture` writes today: the same tensors, batch and
+    JAX loss; and the port's float32 step on the CPU from the imported state
+    takes that loss within 1e-4 (rel.), as the card must."""
+    write_orbax_fixture(tmp_path / 'out', tmp_path / 'work')
+    new, old = (torch.load(d / 'orbax_run.pt', weights_only=True)
+                for d in (tmp_path / 'out', ORBAX_DATA))
+
+    def flat(tree, prefix=''):
+        if isinstance(tree, dict):
+            return {k2: v2 for k, v in tree.items() for k2, v2 in flat(v, f'{prefix}/{k}').items()}
+        return {prefix: tree}
+
+    a, b = flat(new), flat(old)
+    assert a.keys() == b.keys()
+    for k, v in a.items():
+        if isinstance(v, torch.Tensor):
+            torch.testing.assert_close(v, b[k], rtol=1e-5, atol=1e-7, msg=k)
+        else:
+            assert v == b[k], k
+    for name in ('orbax_batch.npz', 'orbax_run.json'):
+        if name.endswith('.json'):
+            new_j, old_j = (json.loads((d / name).read_text())
+                            for d in (tmp_path / 'out', ORBAX_DATA))
+            np.testing.assert_allclose(new_j.pop('jax_loss'), old_j.pop('jax_loss'),
+                                       rtol=1e-6)
+            assert new_j == old_j
+        else:
+            with np.load(tmp_path / 'out' / name) as x, np.load(ORBAX_DATA / name) as y:
+                assert x.files == y.files
+                for k in x.files:
+                    np.testing.assert_array_equal(x[k], y[k])
+    assert sum(p.stat().st_size for p in ORBAX_DATA.glob('orbax_*')) < 1_000_000
+    from chip_smoke import orbax_fixture_step
+    loss, jax_loss = orbax_fixture_step(ORBAX_DATA, 'cpu')
+    assert abs(loss - jax_loss) <= 1e-4 * abs(jax_loss), (loss, jax_loss)

@@ -344,7 +344,6 @@ def test_load_segmenter_warns_for_a_missing_checkpoint(tmp_path, capsys, segment
     """A from-segmented run whose checkpoint is missing goes on without a
     segmenter, with a warning, as the JAX runner does; a present one loads."""
     cfg = dict(label_slice_type='from-segmented', segment_model_path=str(tmp_path / 'x.pt'))
-    trunner.check_ported_config(dict(cfg, clinical_view_affine_type='from-segmented'))
     assert trunner._load_segmenter(cfg, 6, 'cpu') is None
     assert 'no checkpoint at' in capsys.readouterr().out
     assert trunner._load_segmenter(dict(cfg, label_slice_type='from-gt'), 6, 'cpu') is None

@@ -37,7 +37,7 @@ from acquisition_focus_tpu_torch.convert import (
 from acquisition_focus_tpu_torch.engine import train as ttrain
 from acquisition_focus_tpu_torch.engine.optimizers import (
     make_reconstruction_optimizer, make_transform_optimizer)
-from acquisition_focus_tpu_torch.engine.runner import run_dl, spec_from_config
+from acquisition_focus_tpu_torch.engine.runner import spec_from_config
 
 SKINNY = dict(
     n_views=2, num_classes=3, n_active_views=2, view_optimization_mode='opt-all',
@@ -298,17 +298,12 @@ def test_stage_spec_fields_match_jax():
                                       jtrain.StageSpec(**kw).view_train_mask())
 
 
-@pytest.mark.parametrize('override', [
-    dict(mesh_shape={'data': 2}, model_type='hybrid-EPix2Vox'), dict(model_type='epix2vox')])
+@pytest.mark.parametrize('override', [dict(model_type='epix2vox')])
 def test_unported_options_refused(override):
-    """Options whose code is not ported raise instead of running without effect:
-    stage options in make_models, run options ((E)Pix2Vox under a device mesh) in
-    run_dl before it builds anything."""
+    """Options whose code is not ported raise in make_models instead of running
+    without effect: an unknown ``model_type``."""
     with pytest.raises(NotImplementedError):
-        if set(override) <= {f.name for f in dataclasses.fields(ttrain.StageSpec)}:
-            ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)), 'cpu')
-        else:
-            run_dl('.', dict(DEFAULTS, **override), (0, ([], [])), device='cpu')
+        ttrain.make_models(ttrain.StageSpec(**dict(SKINNY, **override)), 'cpu')
 
 
 @pytest.mark.parametrize('override', [

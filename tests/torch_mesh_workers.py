@@ -1,5 +1,6 @@
-"""Rank functions of ``test_torch_mesh.py``, in a module that imports no JAX: each
-rank that ``parallel.spawn_ranks`` starts imports this module to find them.
+"""Rank functions of ``test_torch_mesh.py`` and ``test_torch_epix2vox_mesh*.py``, in
+a module that imports no JAX: each rank that ``parallel.spawn_ranks`` starts
+imports this module to find them.
 
 A rank runs a list of jobs ``(function name, *args)`` in order; rank 0 saves each
 job's result to ``out_dir/<i>.pt`` (every job is a collective, so rank 0's
@@ -18,38 +19,60 @@ from acquisition_focus_tpu_torch.convert import load_flax_params_sharded
 from acquisition_focus_tpu_torch.engine.checkpoint import (
     gather_module_state, gather_optimizer_state, load_optimizer)
 from acquisition_focus_tpu_torch.engine.optimizers import (
-    make_reconstruction_optimizer, make_transform_optimizer)
+    make_epix2vox_optimizer, make_reconstruction_optimizer, make_transform_optimizer)
 from acquisition_focus_tpu_torch.engine.runner import run_dl
-from acquisition_focus_tpu_torch.parallel.collectives import model_gather
+from acquisition_focus_tpu_torch.models.epix2vox import BatchNorm, Bottleneck, Epix2VoxDecoder
+from acquisition_focus_tpu_torch.parallel.collectives import (
+    all_gather, all_reduce_sum, copy_to_model, data_gather, gather_from_model, model_gather)
+from acquisition_focus_tpu_torch.parallel.feature_parallel import shard_epix2vox
 from acquisition_focus_tpu_torch.parallel.mesh import SPLIT_ATTR, is_split
 from acquisition_focus_tpu_torch.parallel.mesh import (
-    check_replicated, make_mesh, shard_batch, shard_params)
+    check_replicated, feature_split_dims, make_mesh, shard_batch, shard_params)
 from acquisition_focus_tpu_torch.scripts.smoke_mesh import Branches
 
 LR, UPE, EPOCHS = 1e-3, 2, 8
 
 
-def build(spec_kw, unet_sd, atm_sds):
-    """The port's models on the CPU from full state_dicts, and both optimizers."""
+def models(spec_kw, decoder=None):
+    """The port's models on the CPU; under an (E)Pix2Vox ``model_type``,
+    ``decoder`` narrows its decoder to those ``features`` (fewer levels: a
+    coarser output volume, which the spec's hires grid must match)."""
     spec = ttrain.StageSpec(**spec_kw)
     unet, atms = ttrain.make_models(spec, 'cpu')
+    if decoder is not None:
+        unet.decoder = Epix2VoxDecoder(features=decoder)
+    return spec, unet, atms
+
+
+def build(spec_kw, unet_sd, atm_sds, decoder=None):
+    """The port's models on the CPU from full state_dicts, and both optimizers
+    (the reconstruction one (E)Pix2Vox's Adam under its ``model_type``)."""
+    spec, unet, atms = models(spec_kw, decoder)
     unet.load_state_dict(unet_sd)
     for m, sd in zip(atms, atm_sds):
         m.load_state_dict(sd)
-    r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
+    if spec.model_type in ttrain.EPIX2VOX_TYPES:
+        r_opt = make_epix2vox_optimizer(unet, UPE)
+    else:
+        r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
     t_opt = make_transform_optimizer(atms.parameters(), LR, EPOCHS, UPE)
     return spec, unet, atms, r_opt, t_opt
 
 
-def step(spec_kw, batch, unet_sd, atm_sds, seed, mesh_shape=None, branches=None):
+def step(spec_kw, batch, unet_sd, atm_sds, seed, mesh_shape=None, branches=None,
+         decoder=None, dtype=None):
     """One ``train_step`` (on ``mesh_shape``, or in this process alone): loss,
     dice, every gradient and updated parameter as full tensors, the split
     parameters' names, whether the replicated state is bit-equal on every rank;
     and the LeakyReLU inputs (one process) or, given the one-process
     ``branches``, the mesh's run with those branches imposed: how many elements
-    had the other sign, and the largest input difference (``Branches``)."""
+    had the other sign, and the largest input difference (``Branches``).
+    ``decoder``: see :func:`models`. ``dtype``: the reconstruction model's
+    parameters cast to it (an (E)Pix2Vox model computes in its parameters' dtype)."""
     mesh = make_mesh(mesh_shape)
-    spec, unet, atms, r_opt, t_opt = build(spec_kw, unet_sd, atm_sds)
+    spec, unet, atms, r_opt, t_opt = build(spec_kw, unet_sd, atm_sds, decoder)
+    if dtype is not None:
+        unet.to(dtype)
     split = shard_params(unet, atms, mesh)
     tb = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
     tb = shard_batch(tb, mesh, True)
@@ -86,6 +109,92 @@ def step(spec_kw, batch, unet_sd, atm_sds, seed, mesh_shape=None, branches=None)
             dist.all_reduce(diff, op=dist.ReduceOp.MAX)
             out['branch_flips'], out['act_max_diff'] = int(flips), float(diff)
     return out
+
+
+def epix2vox_init(spec_kw, decoder=None):
+    """An (E)Pix2Vox model's and its ATMs' state_dicts from ``init_params`` (seed 0)."""
+    _, unet, atms = models(spec_kw, decoder)
+    ttrain.init_params(unet, atms, torch.Generator().manual_seed(0))
+    return unet.state_dict(), [m.state_dict() for m in atms]
+
+
+def batch_norm(x, weight, bias, cotangent, data):
+    """An (E)Pix2Vox ``BatchNorm`` on {'data': ``data``}: each rank normalizes its
+    rows of ``x`` (N, C, ...) and takes the gradient of sum(y * cotangent) over
+    them. Returns the whole batch's output and input gradient (gathered) and the
+    scale and bias gradients summed over the ranks."""
+    mesh = make_mesh({'data': data})
+    norm = BatchNorm(x.shape[1])
+    with torch.no_grad():
+        norm.weight.copy_(weight)
+        norm.bias.copy_(bias)
+    norm.group = mesh.groups['data']
+    rows = shard_batch({'label': x, 'image': cotangent}, mesh, train=False)
+    xr = rows['label'].clone().requires_grad_()
+    y = norm(xr)
+    (y * rows['image']).sum().backward()
+    group = mesh.groups['data']
+    return dict(y=data_gather(y.detach(), mesh), dx=data_gather(xr.grad, mesh),
+                dweight=all_reduce_sum(norm.weight.grad, group),
+                dbias=all_reduce_sum(norm.bias.grad, group))
+
+
+def bottleneck(state_dict, args, x, cotangent, model):
+    """A ``Bottleneck(*args)`` split over {'model': ``model``}
+    (``feature_parallel.shard_epix2vox``) on the replicated ``x``: its output, input
+    gradient and parameter gradients (gathered to full tensors) for the
+    cotangent, and the names of the split parameters."""
+    mesh = make_mesh({'model': model})
+    block = Bottleneck(*args)
+    block.load_state_dict(state_dict)
+    split = feature_split_dims(block, model)
+    shard_epix2vox(block, split, mesh)
+    xr = x.clone().requires_grad_()
+    y = block(xr)
+    (y * cotangent).sum().backward()
+    grads = {n: model_gather(p.grad, mesh, getattr(p, SPLIT_ATTR)) if is_split(p)
+             else p.grad for n, p in block.named_parameters()}
+    return dict(y=y.detach(), dx=xr.grad, grads=grads, split=sorted(split))
+
+
+def channel_gathers(n):
+    """The gathers of the 'model' split on {'model': ``n``} (``mesh.device``: the
+    CPU under gloo, ``cuda:<rank>`` under NCCL): ``gather_from_model`` of each
+    rank's (2, 3, 4, 5, 6) slab, contiguous and channels-last, against
+    ``torch.cat`` of every rank's slab (each rank draws them all from one seed),
+    its layout, and its backward (this rank's slice of the cotangent);
+    ``all_gather`` along the batch; ``copy_to_model`` of a channels-last batch
+    of one: its strides, and its backward (the sum over the ranks). Returns the
+    mismatches summed over the ranks and rank 0's names of them."""
+    mesh = make_mesh({'model': n})
+    group, r, dev = mesh.groups['model'], mesh.axis_index('model'), mesh.device
+    gen = torch.Generator().manual_seed(0)
+    parts = [torch.randn(2, 3, 4, 5, 6, generator=gen) for _ in range(n)]
+    bad = []
+    if not torch.equal(all_gather(parts[r].to(dev), group, 0).cpu(), torch.cat(parts, 0)):
+        bad.append('all_gather along the batch')
+    whole = torch.cat(parts, dim=1)
+    cotangent = torch.arange(whole.numel(), dtype=whole.dtype).view_as(whole)
+    for layout in (torch.contiguous_format, torch.channels_last_3d):
+        x = parts[r].to(dev).clone(memory_format=layout).requires_grad_()
+        y = gather_from_model(x, group)
+        if not torch.equal(y.detach().cpu(), whole):
+            bad.append(f'{layout}: values')
+        if not y.is_contiguous(memory_format=layout):
+            bad.append(f'{layout}: layout {y.stride()}')
+        (y * cotangent.to(dev)).sum().backward()
+        if not torch.equal(x.grad.cpu(), cotangent.chunk(n, dim=1)[r]):
+            bad.append(f'{layout}: gradient')
+    x = parts[r][:1].to(dev).clone(memory_format=torch.channels_last_3d).requires_grad_()
+    y = copy_to_model(x, group)
+    if y.stride() != x.stride():
+        bad.append(f'copy_to_model: strides {y.stride()} of {x.stride()}')
+    (y * (r + 1)).sum().backward()
+    if not torch.equal(x.grad.cpu(), torch.full(x.shape, n * (n + 1) / 2)):
+        bad.append('copy_to_model: gradient')
+    count = torch.tensor([len(bad)], device=dev)
+    dist.all_reduce(count)
+    return dict(mismatches=int(count), rank0=bad)
 
 
 def weights_across(spec_kw, unet_params, atm_params, moments, mesh_shape):
