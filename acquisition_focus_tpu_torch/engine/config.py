@@ -112,6 +112,16 @@ DEFAULTS = DotDict(
 )
 
 
+# The port's own keys, which the JAX package does not know: read as
+# ``config.get(key, PORT_DEFAULTS[key])``, so that ``DEFAULTS`` stays the
+# original's.
+PORT_DEFAULTS = DotDict(
+    trace_spans=False,               # record the training step's spans in memory
+                                     # and log their host ms per step each epoch
+                                     # (utils/spans.py, engine/runner.py)
+)
+
+
 def load_config(base_path=None, meta_path=None, overrides=None):
     """Build an effective config: DEFAULTS <- base json <- meta json <- overrides."""
     cfg = DotDict(DEFAULTS.copy())

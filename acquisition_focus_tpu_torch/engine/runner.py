@@ -25,6 +25,11 @@ group of one process per device (``main.py`` starts them): the batch split over
 every rank; rank 0 alone logs and writes metrics, artifacts and checkpoints,
 which keep the one-device format (the slices gathered to full tensors on save,
 with the moments of every param group, sliced again on load).
+
+``trace_spans`` (the port's own key, ``engine/config.py::PORT_DEFAULTS``) turns
+the in-memory span records of ``utils/spans.py`` on for the run; each epoch then
+logs ``perf/span/<name>_ms``, the mean host ms per training step of each span,
+and ``perf/count/<name>``, the mean count per training step of each counter.
 """
 
 import dataclasses
@@ -38,7 +43,7 @@ import torch
 from acquisition_focus_tpu_torch.engine.checkpoint import (
     checkpoint_exists, gather_module_state, gather_optimizer_state, load_checkpoint,
     load_optimizer, save_checkpoint)
-from acquisition_focus_tpu_torch.engine.config import DEFAULTS, load_config
+from acquisition_focus_tpu_torch.engine.config import DEFAULTS, PORT_DEFAULTS, load_config
 from acquisition_focus_tpu_torch.engine.metrics import (
     accumulate_label_scores, hausdorff_per_class, hausdorff_per_class_device,
     iou_per_class_labels, reduce_label_scores)
@@ -52,6 +57,7 @@ from acquisition_focus_tpu_torch.ops.affine import affine_zooms
 from acquisition_focus_tpu_torch.parallel.mesh import (
     barrier, broadcast_scalar, is_main_process, make_mesh, mesh_summary, shard_batch,
     shard_opt_state, shard_params)
+from acquisition_focus_tpu_torch.utils import spans
 from acquisition_focus_tpu_torch.utils.logging import RunLogger, get_global_idx
 
 __all__ = ['DEFAULTS', 'load_config', 'spec_from_config', 'run_dl']
@@ -123,11 +129,13 @@ class _NullLogger:
 
 def _to_device(batch, device, image=False):
     """numpy batch -> tensors on ``device`` (labels as int64, the rest float32); the
-    image volume only with ``image`` (the segmenter's input)."""
-    return {k: torch.as_tensor(np.asarray(v),
-                               dtype=torch.int64 if k == 'label' else torch.float32,
-                               device=device)
-            for k, v in batch.items() if image or k != 'image'}
+    image volume only with ``image`` (the segmenter's input). In the span
+    ``af.stage``."""
+    with spans.span('af.stage'):
+        return {k: torch.as_tensor(np.asarray(v),
+                                   dtype=torch.int64 if k == 'label' else torch.float32,
+                                   device=device)
+                for k, v in batch.items() if image or k != 'image'}
 
 
 def _load_segmenter(config, num_classes, device):
@@ -160,6 +168,9 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
     mesh = make_mesh(config.get('mesh_shape'))
     device = mesh.device if mesh is not None else resolve_device(device)
     main_rank = mesh is None or is_main_process()
+    trace_spans = bool(config.get('trace_spans', PORT_DEFAULTS['trace_spans']))
+    if trace_spans:
+        spans.enable()
     fold_idx, (train_idxs, val_idxs) = fold_properties
     num_classes = len(training_dataset.label_tags) if training_dataset \
         else len(test_dataset.label_tags)
@@ -290,6 +301,7 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
             t_metrics = {}
             losses = []
             n_steps = 0
+            span_before, counts_before = spans.span_ns(), spans.totals()
             for sel, batch in training_dataset.iterate_train_macrobatches(
                     train_idxs, B, accum, data_rng):
                 if not refresh_epoch:
@@ -302,6 +314,8 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
                 accumulate_label_scores(t_metrics, 'dice', metrics['dice'].cpu().numpy(),
                                         training_dataset.label_tags)
                 n_steps += 1
+            step_perf = spans.per_step(span_before, counts_before, n_steps) \
+                if trace_spans else {}
             train_loss = broadcast_scalar(
                 float(np.mean(losses)) if losses else float('nan'), mesh)
             _log_phase(logger, config, 'train', train_loss, t_metrics, global_idx)
@@ -328,6 +342,7 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
         perf = {'perf/epoch_s': epoch_s}
         if not run_test_once_only:
             perf['perf/train_slices'] = n_steps * accum * B * spec.n_views
+            perf.update(step_perf)
         logger.log(perf, step=global_idx)
         log(f"epoch {epx}: train_loss={train_loss:.4f} val_loss={val_loss:.4f} "
             f"({epoch_s:.1f}s)")
@@ -379,6 +394,8 @@ def run_dl(base_dir, config, fold_properties, stage=None, training_dataset=None,
             break
 
     logger.finish()
+    if trace_spans:
+        spans.enable(False)
     return best_save_path
 
 

@@ -43,6 +43,7 @@ from acquisition_focus_tpu_torch.ops.resample import (
 from acquisition_focus_tpu_torch.ops.rotations import random_affine_batch
 from acquisition_focus_tpu_torch.parallel.collectives import (
     data_gather, data_mean, sync_gradients)
+from acquisition_focus_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass(frozen=True)
@@ -382,7 +383,18 @@ def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
     sharded (``parallel.shard_params``). The augmentation draws are the whole
     batch's; after the accumulation loop the gradients are averaged over 'data'
     (``parallel.collectives.sync_gradients``); the loss and dice returned are the
-    whole batch's, in the one-device order."""
+    whole batch's, in the one-device order.
+
+    The step runs in the span ``af.step`` (``utils/spans.py``), each microbatch's
+    forward and backward in ``af.forward`` and ``af.backward``, the gradient
+    average over 'data' in ``af.grad_sync``, the gradient mask and both updates in
+    ``af.optimizer``."""
+    with spans.step():
+        return _train_step(spec, unet, atms, recon_opt, trans_opt, batch,
+                           augment_generator, mesh)
+
+
+def _train_step(spec, unet, atms, recon_opt, trans_opt, batch, augment_generator, mesh):
     accum = spec.num_grad_accum_steps
     data_shard = None
     if mesh is not None and 'data' in mesh.shape:
@@ -394,9 +406,11 @@ def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
     losses, dices = [], []
     for i in range(accum):
         micro = {k: v[i] for k, v in batch.items()}
-        loss, aux = forward(spec, unet, atms, micro, augment_generator,
-                            data_shard=data_shard)
-        (loss / accum).backward()
+        with spans.span('af.forward'):
+            loss, aux = forward(spec, unet, atms, micro, augment_generator,
+                                data_shard=data_shard)
+        with spans.span('af.backward'):
+            (loss / accum).backward()
         with torch.no_grad():
             _, dice = metrics_from_logits(aux['logits'], aux['target_onehot'], num_eval)
         losses.append(loss.detach())
@@ -404,19 +418,20 @@ def train_step(spec: StageSpec, unet, atms, recon_opt, trans_opt, batch,
         del loss, aux
 
     if mesh is not None:
-        sync_gradients(mesh, (unet, atms))
+        with spans.span('af.grad_sync'):
+            sync_gradients(mesh, (unet, atms))
 
-    # per-view trainability: frozen (and inactive) views get no gradient and so
-    # no AdamW update — no weight decay either
-    full_mask = np.zeros(spec.n_views, bool)
-    full_mask[:spec.n_active_views] = spec.view_train_mask()
-    for v in np.flatnonzero(~full_mask):
-        for p in atms[v].parameters():
-            p.grad = None
-
-    for opt, sched in (recon_opt,) + ((trans_opt,) if full_mask.any() else ()):
-        opt.step()
-        sched.step()
+    with spans.span('af.optimizer'):
+        # per-view trainability: frozen (and inactive) views get no gradient and
+        # so no AdamW update — no weight decay either
+        full_mask = np.zeros(spec.n_views, bool)
+        full_mask[:spec.n_active_views] = spec.view_train_mask()
+        for v in np.flatnonzero(~full_mask):
+            for p in atms[v].parameters():
+                p.grad = None
+        for opt, sched in (recon_opt,) + ((trans_opt,) if full_mask.any() else ()):
+            opt.step()
+            sched.step()
     loss, dice = torch.stack(losses).mean(), torch.stack(dices)
     if data_shard is not None:
         loss, dice = data_mean(loss, mesh), data_gather(dice, mesh, dim=1)

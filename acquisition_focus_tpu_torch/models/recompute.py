@@ -36,7 +36,8 @@ from torch.utils.checkpoint import (
 # registers the kernels' dispatcher ops named below
 import acquisition_focus_tpu_torch.ops.kernels.conv3d  # noqa: F401
 import acquisition_focus_tpu_torch.ops.kernels.plane_resample  # noqa: F401
-from acquisition_focus_tpu_torch.parallel.collectives import KEPT_OPS
+from acquisition_focus_tpu_torch.parallel.collectives import KEPT_OPS, kept_gathers
+from acquisition_focus_tpu_torch.utils import spans
 
 CONV_OUT = frozenset({torch.ops.aten.convolution.default,
                       torch.ops.afocus.conv3d_fwd.default})
@@ -44,21 +45,54 @@ SKIP = frozenset({torch.ops.afocus.skip_concat_fwd.default})
 COLLECTIVES = KEPT_OPS
 
 
-def _policy(save_ops, ctx, op, *args, **kwargs):
-    return CheckpointPolicy.MUST_SAVE if op in save_ops \
-        else CheckpointPolicy.PREFER_RECOMPUTE
+def _policy(save_ops, tally, ctx, op, *args, **kwargs):
+    if op in save_ops:
+        return CheckpointPolicy.MUST_SAVE
+    if not ctx.is_recompute and op.namespace != 'profiler':
+        tally[0] += 1
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _replay(recompute_ctx, tally, keeps_gathers):
+    """The context of a region's replay in backward (entered only then): counts
+    the replay and the ops the policy marked for recomputation, and runs it in
+    the span ``af.recompute``, outside the policy's dispatch mode."""
+    spans.count('recompute.replays')
+    if tally[0]:
+        spans.count('recompute.ops', tally[0])
+    with spans.span('af.recompute'), \
+            kept_gathers() if keeps_gathers else contextlib.nullcontext(), recompute_ctx:
+        yield
+
+
+def _contexts(save_ops):
+    tally = [0]
+    if save_ops is None:
+        forward_ctx, recompute_ctx = noop_context_fn()
+    else:
+        forward_ctx, recompute_ctx = create_selective_checkpoint_contexts(
+            functools.partial(_policy, save_ops, tally))
+    keeps_gathers = save_ops is not None and KEPT_OPS <= save_ops
+    return forward_ctx, _replay(recompute_ctx, tally, keeps_gathers)
 
 
 def region(fn, *args, save_ops=None):
     """``fn(*args)`` as a recompute region: everything recomputed in backward
-    (``save_ops=None``), or all but the outputs of the ops in ``save_ops``."""
+    (``save_ops=None``), or all but the outputs of the ops in ``save_ops``.
+
+    Each replay in backward counts ``recompute.replays`` and runs in the span
+    ``af.recompute`` (``utils/spans.py``). Under the selective policy the replay
+    also counts, in ``recompute.ops``, the dispatcher ops that the policy marked
+    for recomputation in the forward (``record_function``'s own ops left out; a
+    replay that stops early, once backward has what it needs, may leave the last
+    of them unrun). A whole-region replay (``save_ops=None``) counts replays
+    only: no policy sees its ops."""
     if not torch.is_grad_enabled():
         return fn(*args)
-    context_fn = noop_context_fn if save_ops is None else \
-        functools.partial(create_selective_checkpoint_contexts,
-                          functools.partial(_policy, frozenset(save_ops)))
+    save_ops = None if save_ops is None else frozenset(save_ops)
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
-                      context_fn=context_fn)
+                      context_fn=functools.partial(_contexts, save_ops))
 
 
 @contextlib.contextmanager

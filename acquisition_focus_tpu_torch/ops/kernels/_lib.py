@@ -10,9 +10,10 @@ The build happens on the first kernel launch, never at import: the CPU tests imp
 every module on machines without ``nvcc``. There is no fallback: a missing ``nvcc``
 or a failed build raises.
 
-``LAUNCHES`` counts, per kernel, the launches since the last
-:func:`reset_launch_counts`; each wrapper adds one where it launches its kernel.
-K3 launched as the input gradient of the conv counts under ``conv3d_dx``.
+Each launch adds one to the counter ``launch.<kernel>`` of ``utils/spans.py``;
+``LAUNCHES`` is the per-kernel view of those counters, the launches since the
+last :func:`reset_launch_counts`. K3 launched as the input gradient of the conv
+counts under ``conv3d_dx``.
 """
 
 import ctypes
@@ -21,6 +22,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from acquisition_focus_tpu_torch.utils import spans
 
 CSRC = Path(__file__).resolve().parents[2] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
@@ -37,15 +40,15 @@ _SIGNATURES = {
     'afk_conv3d_wgrad': [_P] * 5 + [_I] * 7 + [_P],
 }
 
-LAUNCHES = {'plane_resample_fwd': 0, 'plane_resample_bwd': 0,
-            'volume_resample': 0, 'conv3d_fwd': 0, 'conv3d_dx': 0, 'conv3d_wgrad': 0}
+LAUNCHES = spans.CounterView('launch.', (
+    'plane_resample_fwd', 'plane_resample_bwd', 'volume_resample', 'conv3d_fwd',
+    'conv3d_dx', 'conv3d_wgrad'))
 
 _lib = None
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.reset()
 
 
 def _nvcc():
@@ -95,6 +98,8 @@ def launch(kernel, fn_name, *args):
     """Call C entry ``fn_name`` of the library on the current CUDA stream, raise
     on a launch error, and count one launch of ``kernel``."""
     import torch
+    if kernel not in LAUNCHES:
+        raise KeyError(f"no launch counter for kernel {kernel!r}")
     fn = getattr(library(), fn_name)
     # ctypes passes arguments beyond argtypes unconverted, so a wrong count
     # would not raise by itself
@@ -105,7 +110,7 @@ def launch(kernel, fn_name, *args):
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({library().afk_error_string(rc).decode()})")
-    LAUNCHES[kernel] += 1
+    spans.count('launch.' + kernel)
 
 
 def check_cuda_tensor(name, t, dtypes=None):

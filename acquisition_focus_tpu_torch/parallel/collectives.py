@@ -20,21 +20,50 @@ Every collective is a functional collective (``torch.ops._c10d_functional``,
 with ``wait_tensor``): dispatcher ops, so the recompute policy of
 ``models/recompute.py`` sees the forward all-gathers and keeps their outputs
 (:data:`KEPT_OPS`) instead of running them a second time in backward.
+
+Each collective that runs counts ``collective.calls`` and its input's bytes in
+``collective.bytes`` (``utils/spans.py``). An all-gather replayed inside a
+region that keeps :data:`KEPT_OPS` (:func:`kept_gathers`) returns its kept
+output and sends nothing, so it is not counted.
 """
+
+import contextlib
+import threading
 
 import torch
 import torch.distributed as dist
 
 from acquisition_focus_tpu_torch.parallel.mesh import is_split
+from acquisition_focus_tpu_torch.utils import spans
 
 _c10d = torch.ops._c10d_functional
 
 # the forward collectives' ops, whose outputs a recompute region keeps
 KEPT_OPS = frozenset({_c10d.all_gather_into_tensor.default, _c10d.wait_tensor.default})
 
+_replay = threading.local()
+
+
+@contextlib.contextmanager
+def kept_gathers():
+    """Inside: the replay of a recompute region that keeps :data:`KEPT_OPS`, where
+    an all-gather returns its kept output (not counted as a collective)."""
+    before = getattr(_replay, 'kept', False)
+    _replay.kept = True
+    try:
+        yield
+    finally:
+        _replay.kept = before
+
+
+def _count(x):
+    spans.count('collective.calls')
+    spans.count('collective.bytes', x.numel() * x.element_size())
+
 
 def all_reduce_sum(x, group):
     """The sum of ``x`` over ``group`` (a new tensor)."""
+    _count(x)
     return _c10d.wait_tensor(_c10d.all_reduce(x.contiguous(), 'sum', group.group_name))
 
 
@@ -46,6 +75,8 @@ def all_gather(x, group, dim):
     if dim == 1 and x.ndim > 2 and not x.is_contiguous() \
             and x.movedim(1, -1).is_contiguous():
         return all_gather(x.movedim(1, -1), group, x.ndim - 1).movedim(-1, 1)
+    if not getattr(_replay, 'kept', False):
+        _count(x)
     g = _c10d.wait_tensor(_c10d.all_gather_into_tensor(x.contiguous(), n,
                                                        group.group_name))
     if dim == 0:

@@ -23,12 +23,14 @@ from acquisition_focus_tpu_torch.engine.optimizers import (
 from acquisition_focus_tpu_torch.engine.runner import run_dl
 from acquisition_focus_tpu_torch.models.epix2vox import BatchNorm, Bottleneck, Epix2VoxDecoder
 from acquisition_focus_tpu_torch.parallel.collectives import (
-    all_gather, all_reduce_sum, copy_to_model, data_gather, gather_from_model, model_gather)
+    all_gather, all_reduce_sum, copy_to_model, data_gather, gather_from_model, kept_gathers,
+    model_gather)
 from acquisition_focus_tpu_torch.parallel.feature_parallel import shard_epix2vox
 from acquisition_focus_tpu_torch.parallel.mesh import SPLIT_ATTR, is_split
 from acquisition_focus_tpu_torch.parallel.mesh import (
     check_replicated, feature_split_dims, make_mesh, shard_batch, shard_params)
 from acquisition_focus_tpu_torch.scripts.smoke_mesh import Branches
+from acquisition_focus_tpu_torch.utils import spans
 
 LR, UPE, EPOCHS = 1e-3, 2, 8
 
@@ -195,6 +197,45 @@ def channel_gathers(n):
     count = torch.tensor([len(bad)], device=dev)
     dist.all_reduce(count)
     return dict(mismatches=int(count), rank0=bad)
+
+
+def collective_counts(spec_kw, batch, seed):
+    """The collective counters (``collective.calls``, ``collective.bytes``) on a
+    {'data': n} mesh: after one all-reduce of 3 float32 values, one all-gather of
+    8, and one all-gather inside ``kept_gathers`` (not counted), and in one ``train_step`` with spans on, beside the bytes that step's
+    collectives move (every gradient in one flat bucket, the loss's mean, the
+    dice's gather) and its span records as (name, parent, step id)."""
+    mesh = make_mesh({'data': dist.get_world_size()})
+    group = mesh.groups['data']
+    spans.reset('collective.')
+    all_reduce_sum(torch.ones(3), group)
+    after_reduce = spans.totals()
+    all_gather(torch.ones(2, 4), group, 0)
+    after_gather = spans.totals()
+    with kept_gathers():        # a replay's all-gather returns its kept output
+        all_gather(torch.ones(2, 4), group, 0)
+    after_kept = spans.totals()
+    spec = ttrain.StageSpec(**spec_kw)
+    unet, atms = ttrain.make_models(spec, 'cpu')
+    ttrain.init_params(unet, atms, torch.Generator().manual_seed(seed))
+    r_opt = make_reconstruction_optimizer(unet.parameters(), LR, UPE)
+    t_opt = make_transform_optimizer(atms.parameters(), LR, EPOCHS, UPE)
+    tb = shard_batch({k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}, mesh)
+    spans.clear_records()
+    spans.enable()
+    try:
+        out = ttrain.train_step(spec, unet, atms, r_opt, t_opt, tb, mesh=mesh)
+    finally:
+        spans.enable(False)
+    step = spans.recent_steps(1)[0]
+    grads = sum(p.grad.numel() * p.grad.element_size()
+                for m in (unet, atms) for p in m.parameters() if p.grad is not None)
+    local_dice = out['dice'].numel() // mesh.axis_size('data')
+    return dict(after_reduce=after_reduce, after_gather=after_gather, after_kept=after_kept,
+                step=step.counts,
+                expected_bytes=grads + 4 + local_dice * out['dice'].element_size(),
+                records=[(r.name, r.parent, r.step) for r in spans.records()],
+                step_id=step.step)
 
 
 def weights_across(spec_kw, unet_params, atm_params, moments, mesh_shape):
