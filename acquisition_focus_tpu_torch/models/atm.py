@@ -7,6 +7,8 @@ view axis; here the views are an ``nn.ModuleList`` run in a per-view loop (as th
 JAX package's own ``apply_stacked_atms`` executes them).
 """
 
+import functools
+
 import torch
 import torch.nn as nn
 
@@ -37,6 +39,13 @@ def vox_range_for_clip(offset_clip_value, spat):
     return int(round(hi - lo))
 
 
+@functools.lru_cache(maxsize=None)
+def _init_ap(optim_method, dtype, device):
+    """The rotation parameters' identity init on ``device``, made once: a tensor
+    built from a list on the card waits for everything queued before it."""
+    return torch.tensor(_INIT_AP[optim_method], dtype=dtype, device=device)
+
+
 def atm_theta_from_heads(head_out, optim_method, spat, offset_clip_value,
                          zoom_clip_value):
     """Localization-net outputs (B, ap + 3*vox_range + 1) -> (B, 4, 4) learned
@@ -46,7 +55,8 @@ def atm_theta_from_heads(head_out, optim_method, spat, offset_clip_value,
     vox_range = vox_range_for_clip(offset_clip_value, spat)
     B = head_out.shape[0]
 
-    theta_ap = head_out[:, :ap_space] + head_out.new_tensor(_INIT_AP[optim_method])
+    theta_ap = head_out[:, :ap_space] + _init_ap(optim_method, head_out.dtype,
+                                                 head_out.device)
     theta_tp = head_out[:, ap_space:-1].reshape(B, 3, vox_range)
     theta_zp = head_out[:, -1:] + 1.0
 

@@ -108,7 +108,7 @@ class Conv3x3x3(nn.Module):
         if self.mode and supports_conv3d(x.shape, self.weight.shape):
             return conv3d(x, self.weight, self.bias, kernel_dx=self.mode in ('dx', 'full'),
                           kernel_dw=self.mode in ('wg', 'full'))
-        return F.conv3d(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=1)
+        return recompute.conv(x, self.weight.to(x.dtype), self.bias.to(x.dtype), padding=1)
 
 
 class SkipConnector(nn.Module):
@@ -123,7 +123,10 @@ class SkipConnector(nn.Module):
     def forward(self, x, grid_affines, y=None):
         with torch.autocast(x.device.type, enabled=False):
             g = grid_affines.float()
-            inv_aff = torch.linalg.inv(scale_affine_columns(g, 1.0 / affine_zooms(g)))
+            # inv_ex: linalg.inv's singularity check reads a flag back from the
+            # card, waiting for all queued work (these are rotations and zooms)
+            inv_aff = torch.linalg.inv_ex(
+                scale_affine_columns(g, 1.0 / affine_zooms(g))).inverse
         return skip_concat(y, x.to(_compute_dtype(x)), inv_aff)
 
 
@@ -143,7 +146,7 @@ class DecoderStage(nn.Module):
 
     def forward(self, y, embed_skip):
         """``embed_skip(y_up)``: ``torch.cat([y_up, this level's skip in 3D], 1)``."""
-        y = embed_skip(self.up(y))
+        y = embed_skip(recompute.conv_module(self.up, y))
         with recompute.keep_residuals(self.keep_conv_in):
             y = self.a_conv(y)
         y = _norm_act(self.a_norm, y)

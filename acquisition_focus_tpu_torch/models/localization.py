@@ -11,6 +11,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from acquisition_focus_tpu_torch.models import recompute
+
 
 def leaky_relu(x, negative_slope=0.01):
     """LeakyReLU with flax's convention at 0 (slope 1 there, where
@@ -45,7 +47,7 @@ class ConvNet(nn.Module):
 
     def forward(self, x):
         def block(x, i):
-            x = instance_norm_stateless(self.convs[i](x))
+            x = instance_norm_stateless(recompute.conv_module(self.convs[i], x))
             return leaky_relu(x)
 
         x = F.avg_pool3d(block(x, 0), 2)
@@ -53,7 +55,7 @@ class ConvNet(nn.Module):
         x = F.avg_pool3d(block(block(x, 3), 4), 2)
         x = F.avg_pool3d(block(block(x, 5), 6), 2)
         x = block(x, 7)
-        return instance_norm_stateless(self.conv8(x))
+        return instance_norm_stateless(recompute.conv_module(self.conv8, x))
 
 
 def compute_autocast(device_type, dtype):

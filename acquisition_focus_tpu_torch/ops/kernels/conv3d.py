@@ -20,6 +20,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from acquisition_focus_tpu_torch.models import recompute
 from acquisition_focus_tpu_torch.ops.kernels import _lib
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -130,9 +131,8 @@ def conv3d_wgrad(x, g):
 @torch.library.custom_op('afocus::conv3d_fwd', mutates_args=())
 def conv3d_fwd_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   count_as: str) -> torch.Tensor:
-    """K3 (CUDA) or its plain version (CPU) as one dispatcher op, so that a
-    recompute region's save policy (``models/recompute.py``) sees it and can keep
-    its output instead of launching it again in backward."""
+    """K3 (CUDA) or its plain version (CPU) as one dispatcher op, to which the
+    profiler's trace links the launch."""
     if not x.is_cuda:
         return F.conv3d(x, weight.to(x.dtype), bias.to(x.dtype), padding=1)
     return conv3d_fwd_cuda(x, weight, bias, count_as)
@@ -143,7 +143,9 @@ class _Conv3d(torch.autograd.Function):
     def forward(ctx, x, weight, bias, kernel_dx, kernel_dw):
         ctx.save_for_backward(x, weight)
         ctx.kernel_dx, ctx.kernel_dw = kernel_dx, kernel_dw
-        return conv3d_fwd_op(x, weight, bias, 'conv3d_fwd')
+        # a kept call site of the recompute regions: a replay takes the kept output
+        return recompute.kept(recompute.CONV_OUT,
+                              lambda: conv3d_fwd_op(x, weight, bias, 'conv3d_fwd'))
 
     @staticmethod
     def backward(ctx, grad):

@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from acquisition_focus_tpu_torch.models import recompute
 from acquisition_focus_tpu_torch.ops.kernels import _lib, affine_coefficients
 from acquisition_focus_tpu_torch.ops.resample import sample_slice_into_volume
 
@@ -96,9 +97,8 @@ def plane_resample_bwd(slices, coefs, grad, c_off=0):
 def skip_concat_fwd_op(y: Optional[torch.Tensor], slices: torch.Tensor,
                        coefs: torch.Tensor, out_spat: int) -> torch.Tensor:
     """cat([y, re-embedded views], 1) in a new buffer (``y`` None: the views
-    alone) with one K1f launch, as one dispatcher op: a recompute region's save
-    policy (``models/recompute.py``) keeps its output instead of launching K1f
-    again in backward."""
+    alone) with one K1f launch, as one dispatcher op, to which the profiler's
+    trace links the launch."""
     out, co = None, 0
     if y is not None:
         co = y.shape[1]
@@ -119,7 +119,9 @@ class _PlaneResample(torch.autograd.Function):
     def forward(ctx, y, slices, coefs, out_spat):
         ctx.save_for_backward(slices, coefs)
         ctx.co = 0 if y is None else y.shape[1]
-        return skip_concat_fwd_op(y, slices, coefs, out_spat)
+        # a kept call site of the recompute regions: a replay takes the kept buffer
+        return recompute.kept(recompute.SKIP,
+                              lambda: skip_concat_fwd_op(y, slices, coefs, out_spat))
 
     @staticmethod
     def backward(ctx, grad):

@@ -17,43 +17,24 @@ over 'data' is :func:`sync_gradients` after the accumulation loop, and, for the
 batch, as XLA takes ``jnp.mean``/``jnp.var`` over a batch axis sharded on 'data'.
 
 Every collective is a functional collective (``torch.ops._c10d_functional``,
-with ``wait_tensor``): dispatcher ops, so the recompute policy of
-``models/recompute.py`` sees the forward all-gathers and keeps their outputs
-(:data:`KEPT_OPS`) instead of running them a second time in backward.
+with ``wait_tensor``). An all-gather is a kept call site of the recompute
+regions (``models/recompute.py``, ``COLLECTIVES``): a region that keeps the
+gathers keeps its output, and its replay in backward takes that output instead
+of gathering a second time.
 
 Each collective that runs counts ``collective.calls`` and its input's bytes in
-``collective.bytes`` (``utils/spans.py``). An all-gather replayed inside a
-region that keeps :data:`KEPT_OPS` (:func:`kept_gathers`) returns its kept
-output and sends nothing, so it is not counted.
+``collective.bytes`` (``utils/spans.py``). An all-gather replayed from its kept
+output sends nothing, so it is not counted.
 """
-
-import contextlib
-import threading
 
 import torch
 import torch.distributed as dist
 
+from acquisition_focus_tpu_torch.models import recompute
 from acquisition_focus_tpu_torch.parallel.mesh import is_split
 from acquisition_focus_tpu_torch.utils import spans
 
 _c10d = torch.ops._c10d_functional
-
-# the forward collectives' ops, whose outputs a recompute region keeps
-KEPT_OPS = frozenset({_c10d.all_gather_into_tensor.default, _c10d.wait_tensor.default})
-
-_replay = threading.local()
-
-
-@contextlib.contextmanager
-def kept_gathers():
-    """Inside: the replay of a recompute region that keeps :data:`KEPT_OPS`, where
-    an all-gather returns its kept output (not counted as a collective)."""
-    before = getattr(_replay, 'kept', False)
-    _replay.kept = True
-    try:
-        yield
-    finally:
-        _replay.kept = before
 
 
 def _count(x):
@@ -75,10 +56,13 @@ def all_gather(x, group, dim):
     if dim == 1 and x.ndim > 2 and not x.is_contiguous() \
             and x.movedim(1, -1).is_contiguous():
         return all_gather(x.movedim(1, -1), group, x.ndim - 1).movedim(-1, 1)
-    if not getattr(_replay, 'kept', False):
+
+    def gather():
         _count(x)
-    g = _c10d.wait_tensor(_c10d.all_gather_into_tensor(x.contiguous(), n,
-                                                       group.group_name))
+        return _c10d.wait_tensor(_c10d.all_gather_into_tensor(x.contiguous(), n,
+                                                              group.group_name))
+
+    g = recompute.kept(recompute.COLLECTIVES, gather)
     if dim == 0:
         return g
     g = g.view((n,) + tuple(x.shape)).movedim(0, dim)

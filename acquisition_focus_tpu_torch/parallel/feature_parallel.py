@@ -137,8 +137,8 @@ class ShardedConvTranspose3d(nn.Module):
         _take_bias(self, conv, shard)
 
     def forward(self, x):
-        return F.conv_transpose3d(copy_to_model(x, self.group), self.weight, self.bias,
-                                  self.stride, self.padding, 0, 1, self.dilation)
+        return recompute.conv(copy_to_model(x, self.group), self.weight, self.bias,
+                              self.stride, self.padding, self.dilation, True, 0, 1)
 
 
 class ShardedConv(nn.Module):

@@ -41,7 +41,7 @@ runs). Each keeps a running total (:func:`totals`, cleared per name prefix by
 :func:`reset`), and :func:`step` (``af.step``) closes the counts made inside
 each training step into a short ring of recent steps (:func:`recent_steps`). The program's counters: ``launch.<kernel>``, one per
 hand-written kernel launch (``ops/kernels/_lib.py``, whose ``LAUNCHES`` is a view
-of them); ``recompute.replays`` and ``recompute.ops``
+of them); ``recompute.replays``, ``recompute.ops`` and ``recompute.served``
 (``models/recompute.py``); ``collective.calls`` and ``collective.bytes``
 (``parallel/collectives.py``).
 """

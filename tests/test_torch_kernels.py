@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.ops.kernels import _lib, affine_coefficients
+from acquisition_focus_tpu_torch.models import recompute
+from acquisition_focus_tpu_torch.models.atm import AffineTransformModule
 from acquisition_focus_tpu_torch.models.hybrid_unet import Conv3x3x3, HybridUnet
 from acquisition_focus_tpu_torch.ops.kernels.conv3d import (
     conv3d, conv3d_fwd_cuda, conv3d_wgrad, conv3d_wgrad_cuda, kernel_weights,
@@ -928,3 +930,37 @@ def test_kernel_launches_under_recompute(cuda, unet_remat):
     assert _lib.LAUNCHES['plane_resample_fwd'] == times * n_levels
     assert _lib.LAUNCHES['plane_resample_bwd'] == n_levels
     assert _lib.LAUNCHES['conv3d_fwd'] == times * 2
+
+
+@pytest.mark.cuda
+def test_regions_wait_for_the_device_nowhere(cuda):
+    """The default recompute regions on the card, forward and backward (a narrow
+    U-Net at 128^3 in bf16 whose affines need gradients, and an ATM view chain),
+    with the sync debug mode set to raise: no op of their forwards or replays
+    waits for the device, which would idle the card while the host replays the
+    next region. The first step (kernel builds, the first replays' op counts)
+    runs before."""
+    torch.manual_seed(0)
+    unet = HybridUnet(3, 2, base_features=(4, 8, 8), dtype=torch.bfloat16,
+                      use_pallas_conv='fwd', remat_skips=False,
+                      decoder_save_names=('conv_out', 'conv_in0')).to(cuda)
+    atm = AffineTransformModule(2, prescan_spat=32, locnet_width=2,
+                                dtype=torch.bfloat16).to(cuda)
+    x = torch.rand(1, 6, 128, 128, device=cuda)
+    prescan = torch.rand(1, 2, 32, 32, 32, device=cuda)
+    aff = torch.eye(4, device=cuda).expand(3, 1, 4, 4).contiguous().requires_grad_()
+
+    def step():
+        theta = recompute.region(atm, prescan, save_ops=recompute.CONV_OUT)
+        loss = unet(x, aff).float().square().mean() + theta.square().sum()
+        loss.backward()
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        step()
+    finally:
+        torch.cuda.set_sync_debug_mode('default')
+    torch.cuda.synchronize()
+    assert aff.grad is not None and torch.isfinite(aff.grad).all()

@@ -196,7 +196,8 @@ def worlds(tmp_path_factory, one_process):
                  FOLD, datasets, 'mesh_resumed'),
                 ('mesh_error', {'data': 4}),
                 ('cli', ['--meta_config_path', str(tmp / 'join.json'), '--base_dir',
-                         str(tmp)])]}
+                         str(tmp)]),
+                ('replayed_gather_on', MESHES['model2'])]}
     running = [spawn_ranks(workers.world, 2, args=(jobs[2], str(tmp / 'w2')), threads=1,
                            join=False)]
     jbatch = jax_skinny_batch()
@@ -223,7 +224,8 @@ def worlds(tmp_path_factory, one_process):
                for i in range(len(js))] for n, js in jobs.items()}
     return dict(tmp=tmp, steps={'data2': out[2][0], 'model2': out[2][1],
                                 'data2_model2': out[4][0], 'model4': out[4][1]},
-                mesh_error=out[2][5], jax_mesh=out[4][2], jax_grads=jgrads['grads'],
+                mesh_error=out[2][5], replayed_gather=out[2][7], jax_mesh=out[4][2],
+                jax_grads=jgrads['grads'],
                 weights=out[4][3], jax_params=up, moments=jax_moments(up))
 
 
@@ -373,6 +375,20 @@ def test_world_of_one_is_bit_equal(shape, one_process):
         assert torch.equal(got['params'][k], v), k
     n_unet = sum(k.startswith('unet.') for k in ref['params'])
     assert len(got['split']) == (n_unet if 'model' in shape else 0)
+
+
+def test_a_replayed_gather_sends_nothing(worlds):
+    """On {'model': 2}, a recompute region that keeps its all-gather (as the
+    feature-sharded decoder stages do) gathers once, in the forward, which
+    ``collective.calls`` counts; its replay in backward takes the kept output,
+    so no collective runs there and the counters do not move."""
+    kept = worlds['replayed_gather']
+    fwd, bwd = kept['after_forward'], kept['after_backward']
+    assert fwd['collective.calls'] >= 1
+    assert (bwd['collective.calls'], bwd['collective.bytes']) == \
+        (fwd['collective.calls'], fwd['collective.bytes'])
+    assert not any('_c10d' in op for op in kept['backward_ops'])
+    assert bwd['recompute.served'] == 1 and kept['grad_ok']
 
 
 def test_mesh_larger_than_the_processes_raises(worlds):

@@ -7,10 +7,15 @@ the same setting at the tolerances of ``test_torch_train_step.py`` (the default'
 there); in every setting the port's gradient is bit-equal to its default's; the
 bytes a forward leaves held for backward fall in the order full remat < default
 policy < no regions (the port before recompute); no convolution runs again in
-backward under the default policy, and one does under each full remat. On the
-card, the kernels' launches under recompute: ``test_torch_kernels.py``.
+backward under the default policy, and one does under each full remat. No
+dispatch mode is active in a region's forward or replay but the first replay's
+count of its ops; against selective checkpointing's policy under the same names
+(the port's earlier regions, rebuilt here) the gradients are bit-equal and
+the forward holds the same bytes. On the card, the kernels' launches under
+recompute: ``test_torch_kernels.py``.
 """
 
+import functools
 import gc
 
 import numpy as np
@@ -19,6 +24,8 @@ import jax
 import jax.numpy as jnp
 import torch
 from torch.multiprocessing.reductions import StorageWeakRef
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn)
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
@@ -239,6 +246,89 @@ def test_kernel_op_kept_by_the_policy():
             p.grad = None
     for name in ('full', 'none'):
         assert all(torch.equal(a, b) for a, b in zip(grads[name], grads['policy']))
+
+
+class DispatchStack(torch.nn.Module):
+    """A decoder stage that notes the torch dispatch stack's depth at each call,
+    under the phase its ``depths`` key names ('forward' or 'replay')."""
+
+    def __init__(self, stage):
+        super().__init__()
+        self.stage, self.phase, self.depths = stage, None, {'forward': [], 'replay': []}
+
+    def forward(self, *args):
+        self.depths[self.phase].append(torch._C._len_torch_dispatch_stack())
+        return self.stage(*args)
+
+
+def test_no_dispatch_mode_in_the_forward_or_the_replay(micro):
+    """No dispatch mode is active inside a kept-set region's ``fn``, in its
+    forward or in its replay; only the first replay of each region signature
+    counts its ops under one (``recompute.ops``)."""
+    spec, unet, atms = skinny_models({})
+    probes = [DispatchStack(stage) for stage in unet.decoder]
+    unet.decoder = torch.nn.ModuleList(probes)
+    for _ in range(3):
+        for probe in probes:
+            probe.phase = 'forward'
+        loss, _ = ttrain.forward(spec, unet, atms, micro)
+        for probe in probes:
+            probe.phase = 'replay'
+        loss.backward()
+    for probe in probes:
+        assert probe.depths == {'forward': [0, 0, 0], 'replay': [1, 0, 0]}
+
+
+def sac_region(fn, *args, save_ops=None):
+    """The recompute region as the port ran it before: ``torch.utils.checkpoint``
+    with selective checkpointing's dispatch mode keeping the outputs of the
+    dispatcher ops behind the kept names (the reference of the parity test)."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    context_fn = noop_context_fn
+    if save_ops is not None:
+        ops = frozenset().union(*(SAC_OPS[name] for name in save_ops))
+
+        def policy(ctx, op, *a, **k):
+            return (CheckpointPolicy.MUST_SAVE if op in ops
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        context_fn = functools.partial(create_selective_checkpoint_contexts, policy)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=context_fn)
+
+
+SAC_OPS = {
+    'conv_out': {torch.ops.aten.convolution.default, torch.ops.afocus.conv3d_fwd.default},
+    'skip': {torch.ops.afocus.skip_concat_fwd.default},
+    'all_gather': {torch.ops._c10d_functional.all_gather_into_tensor.default,
+                   torch.ops._c10d_functional.wait_tensor.default},
+}
+
+
+@pytest.mark.parametrize('setting', ['default', "('conv_out',)"])
+def test_parity_with_selective_checkpointing(setting, micro, monkeypatch):
+    """The regions with a kept set against selective checkpointing under the
+    same names (:func:`sac_region`; the default keeps 'conv_in0' too): bit-equal
+    gradients, and the same bytes left held by the forward."""
+    def run(options):
+        spec, unet, atms = skinny_models(options)
+        live = LiveOutputs()
+        with live:
+            loss, aux = ttrain.forward(spec, unet, atms, micro)
+        del aux
+        held = live.live_bytes()
+        loss.backward()
+        return held, {f'{i}.{n}': p.grad for i, m in enumerate((unet, atms))
+                      for n, p in m.named_parameters()}
+
+    held, grads = run(SETTINGS[setting])
+    monkeypatch.setattr(recompute, 'region', sac_region)
+    held_ref, grads_ref = run(SETTINGS[setting])
+    assert held == held_ref
+    assert grads.keys() == grads_ref.keys()
+    for name, g in grads.items():
+        assert torch.equal(g, grads_ref[name]), name
 
 
 def test_unknown_save_name_raises_as_jax():

@@ -157,6 +157,25 @@ def test_recompute_ops_counted_under_the_selective_policy_only(spec_kw, selectiv
     assert (counts.get('recompute.ops', 0) > 0) == selective
 
 
+# kept call sites of one replay on the CPU: each decoder stage's three convs (up,
+# a, b; K1f's concat, the fourth on the card, is the plain composition here) and
+# each trained ATM chain's nine
+DECODER_SITES, ATM_SITES = 3, 9
+
+
+@pytest.mark.parametrize('spec_kw, decoder_sites, atm_sites', [
+    ({}, DECODER_SITES, ATM_SITES),
+    (dict(decoder_save_names=()), 0, ATM_SITES),
+    (dict(atm_remat=True, unet_remat=True), 0, 0)])
+def test_recompute_served_counts_the_kept_call_sites_of_each_replay(
+        spec_kw, decoder_sites, atm_sites):
+    spec, unet, _, _ = run_step(**spec_kw)
+    counts = spans.recent_steps(1)[0].counts
+    n_atms = int(spec.view_train_mask().sum())
+    assert counts.get('recompute.served', 0) == ACCUM * (
+        decoder_sites * len(unet.decoder) + atm_sites * n_atms)
+
+
 def test_a_span_on_another_thread_takes_the_backward_as_parent(spans_on):
     """As autograd's thread on the card: a thread with no span open takes the
     innermost span open on the step's thread."""
@@ -327,7 +346,14 @@ def test_collective_counters_count_calls_and_input_bytes(mesh_counts):
             mesh_counts['after_reduce']['collective.bytes']) == (1, 12)
     assert (mesh_counts['after_gather']['collective.calls'],
             mesh_counts['after_gather']['collective.bytes']) == (2, 12 + 32)
-    assert mesh_counts['after_kept'] == mesh_counts['after_gather']
+    kept = mesh_counts['kept']
+    assert (kept['after_forward']['collective.calls'],
+            kept['after_forward']['collective.bytes']) == (3, 12 + 32 + 32)
+    # the replay takes the kept output: nothing sent, nothing counted
+    assert all(kept['after_backward'][k] == kept['after_forward'][k]
+               for k in ('collective.calls', 'collective.bytes'))
+    assert not any('_c10d' in op for op in kept['backward_ops'])
+    assert kept['after_backward']['recompute.served'] == 1 and kept['grad_ok']
 
 
 def test_a_mesh_step_counts_its_collectives_and_spans_its_gradient_sync(mesh_counts):

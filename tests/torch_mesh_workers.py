@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from acquisition_focus_tpu_torch.engine import train as ttrain
 from acquisition_focus_tpu_torch.convert import load_flax_params_sharded
@@ -23,8 +24,8 @@ from acquisition_focus_tpu_torch.engine.optimizers import (
 from acquisition_focus_tpu_torch.engine.runner import run_dl
 from acquisition_focus_tpu_torch.models.epix2vox import BatchNorm, Bottleneck, Epix2VoxDecoder
 from acquisition_focus_tpu_torch.parallel.collectives import (
-    all_gather, all_reduce_sum, copy_to_model, data_gather, gather_from_model, kept_gathers,
-    model_gather)
+    all_gather, all_reduce_sum, copy_to_model, data_gather, gather_from_model, model_gather)
+from acquisition_focus_tpu_torch.models import recompute
 from acquisition_focus_tpu_torch.parallel.feature_parallel import shard_epix2vox
 from acquisition_focus_tpu_torch.parallel.mesh import SPLIT_ATTR, is_split
 from acquisition_focus_tpu_torch.parallel.mesh import (
@@ -199,12 +200,53 @@ def channel_gathers(n):
     return dict(mismatches=int(count), rank0=bad)
 
 
+class _Dispatched(TorchDispatchMode):
+    """The names of the dispatcher ops run while active."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def _gathered_square(x, scale, group):
+    return gather_from_model(x * scale, group).square()
+
+
+def replayed_gather(group, shape=(2, 4)):
+    """A recompute region that keeps its all-gather (``recompute.COLLECTIVES``)
+    and squares what it gathered (so backward replays it for the square's
+    input), forward and backward: the counters after each, the dispatcher ops of
+    the backward, and whether the input's gradient is this rank's slice's."""
+    scale = float(dist.get_rank(group) + 1)
+    x = torch.ones(shape, requires_grad=True)
+    spans.reset('recompute.served')
+    out = recompute.region(_gathered_square, x, scale, group,
+                           save_ops=recompute.COLLECTIVES)
+    after_forward = spans.totals()
+    with _Dispatched() as seen:
+        out.sum().backward()
+    return dict(after_forward=after_forward, after_backward=spans.totals(),
+                backward_ops=seen.ops,
+                grad_ok=torch.equal(x.grad, torch.full(shape, 2 * scale * scale)))
+
+
+def replayed_gather_on(mesh_shape):
+    """:func:`replayed_gather` over the 'model' axis of ``mesh_shape``."""
+    return replayed_gather(make_mesh(mesh_shape).groups['model'])
+
+
 def collective_counts(spec_kw, batch, seed):
     """The collective counters (``collective.calls``, ``collective.bytes``) on a
     {'data': n} mesh: after one all-reduce of 3 float32 values, one all-gather of
-    8, and one all-gather inside ``kept_gathers`` (not counted), and in one ``train_step`` with spans on, beside the bytes that step's
-    collectives move (every gradient in one flat bucket, the loss's mean, the
-    dice's gather) and its span records as (name, parent, step id)."""
+    8, and a recompute region's all-gather of 8 kept for its replay (counted in
+    the forward, not in the replay), and in one ``train_step`` with spans on,
+    beside the bytes that step's collectives move (every gradient in one flat
+    bucket, the loss's mean, the dice's gather) and its span records as (name,
+    parent, step id)."""
     mesh = make_mesh({'data': dist.get_world_size()})
     group = mesh.groups['data']
     spans.reset('collective.')
@@ -212,9 +254,7 @@ def collective_counts(spec_kw, batch, seed):
     after_reduce = spans.totals()
     all_gather(torch.ones(2, 4), group, 0)
     after_gather = spans.totals()
-    with kept_gathers():        # a replay's all-gather returns its kept output
-        all_gather(torch.ones(2, 4), group, 0)
-    after_kept = spans.totals()
+    kept = replayed_gather(group)
     spec = ttrain.StageSpec(**spec_kw)
     unet, atms = ttrain.make_models(spec, 'cpu')
     ttrain.init_params(unet, atms, torch.Generator().manual_seed(seed))
@@ -231,7 +271,7 @@ def collective_counts(spec_kw, batch, seed):
     grads = sum(p.grad.numel() * p.grad.element_size()
                 for m in (unet, atms) for p in m.parameters() if p.grad is not None)
     local_dice = out['dice'].numel() // mesh.axis_size('data')
-    return dict(after_reduce=after_reduce, after_gather=after_gather, after_kept=after_kept,
+    return dict(after_reduce=after_reduce, after_gather=after_gather, kept=kept,
                 step=step.counts,
                 expected_bytes=grads + 4 + local_dice * out['dice'].element_size(),
                 records=[(r.name, r.parent, r.step) for r in spans.records()],
