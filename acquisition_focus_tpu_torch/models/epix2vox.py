@@ -20,15 +20,25 @@ evaluation alike (no running averages), and float32 compute whatever the stage's
 parameters' dtype). On a device mesh the norms'
 statistics are the whole batch's over the 'data' axis (:class:`BatchNorm`), and
 ``parallel/feature_parallel.py`` splits the conv and norm pairs over 'model'.
+
+On the card, in float32, the 128^3 tail runs on hand-written kernels
+(``ops/kernels/p2v_tail.py``): the merger's conv + norm + leaky-ReLU blocks
+(:class:`MergerConv`), their norms' statistics over 'data' as
+:class:`BatchNorm`'s, and the weight gradient of the decoder's last transposed
+conv. The 'model' axis's stand-ins hold a slice of the channels, which the
+kernels do not take: they keep the library's path, with a warning. CPU tensors
+and float64 twins keep the library's path.
 """
 
 import math
+import warnings
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from acquisition_focus_tpu_torch.ops.channel_ops import channel_softmax, channel_sum
+from acquisition_focus_tpu_torch.ops.kernels import p2v_tail
 from acquisition_focus_tpu_torch.parallel.collectives import batch_norm
 
 
@@ -61,6 +71,23 @@ class BatchNorm(nn.Module):
         else:
             y = F.batch_norm(xf, None, None, w, b, training=True, eps=self.eps)
         return y.to(x.dtype)
+
+
+def _tail_on_card(x):
+    """The 128^3 tail takes ``ops/kernels/p2v_tail.py``'s kernels for CUDA
+    float32 tensors."""
+    return x.is_cuda and x.dtype == torch.float32
+
+
+def _whole(layer, modules, types):
+    """Whether ``modules`` are of ``types``, the model's own; the 'model' axis's
+    stand-ins (a slice of the channels each) are not, and keep the library's
+    path with a warning."""
+    if all(type(m) is t for m, t in zip(modules, types)):
+        return True
+    warnings.warn(f"(E)Pix2Vox's {layer} on the card: the 'model' axis's stand-ins keep "
+                  "the library's path (the tail's kernels take every channel)")
+    return False
 
 
 def _same_pad(x, kernel, stride):
@@ -178,12 +205,33 @@ class Epix2VoxDecoder(nn.Module):
     def forward(self, feats):
         B, V = feats.shape[:2]
         x = feats.reshape(B * V, 2, 2, 2, self.in_features).permute(0, 4, 1, 2, 3)
+        last = len(self.features) - 1
         for i in range(len(self.features)):
-            x = F.relu(getattr(self, f'up{i}_bn')(getattr(self, f'up{i}')(x)))
+            conv, norm = getattr(self, f'up{i}'), getattr(self, f'up{i}_bn')
+            if (i == last and _tail_on_card(x)
+                    and _whole('up5', [conv], [nn.ConvTranspose3d])):
+                # the 128^3 level's weight gradient by p2v_up_dw
+                x = F.relu(norm(p2v_tail.up_conv(x, conv.weight)))
+            else:
+                x = F.relu(norm(conv(x)))
         vol = torch.sigmoid(self.head(x))                      # (BV, 1, S, S, S)
         raw = torch.cat([x, vol], dim=1)
         S = raw.shape[-1]
         return raw.reshape(B, V, -1, S, S, S), vol.reshape(B, V, S, S, S)
+
+
+class MergerConv(nn.Conv3d):
+    """A merger block's 3^3 conv: ``nn.Conv3d``. On the card
+    (``ops/kernels/p2v_tail.py``) it is called with ``prev``, the previous
+    block's norm as (statistics, scale, shift, slope, group), all but the slope
+    None for the first block, and ``norm``, its own block's :class:`BatchNorm`:
+    it applies prev's norm and leaky-ReLU to ``x`` as it reads it and returns
+    (y, y's statistics under ``norm``'s eps and group)."""
+
+    def forward(self, x, prev=None, norm=None):
+        if norm is None:
+            return super().forward(x)
+        return p2v_tail.merge_block(x, prev, self.weight, self.bias, norm.eps, norm.group)
 
 
 class Epix2VoxMerger(nn.Module):
@@ -197,16 +245,21 @@ class Epix2VoxMerger(nn.Module):
         self.leaky = leaky
         ci = 9
         for i, f in enumerate(self.FEATURES):
-            self.add_module(f'm{i}_conv', nn.Conv3d(ci, f, 3, padding=1))
+            self.add_module(f'm{i}_conv', MergerConv(ci, f, 3, padding=1))
             self.add_module(f'm{i}_bn', BatchNorm(f))
             ci = f
 
     def forward(self, raw_features, coarse_volumes):
         B, V = raw_features.shape[:2]
         x = raw_features.reshape((B * V,) + tuple(raw_features.shape[2:]))
-        for i in range(len(self.FEATURES)):
-            x = getattr(self, f'm{i}_bn')(getattr(self, f'm{i}_conv')(x))
-            x = F.leaky_relu(x, self.leaky)
+        n = len(self.FEATURES)
+        convs = [getattr(self, f'm{i}_conv') for i in range(n)]
+        norms = [getattr(self, f'm{i}_bn') for i in range(n)]
+        if _tail_on_card(x) and _whole('merger', convs + norms, [MergerConv] * n + [BatchNorm] * n):
+            x = p2v_tail.merge_convs(x, convs, norms, self.leaky)
+        else:
+            for conv, norm in zip(convs, norms):
+                x = F.leaky_relu(norm(conv(x)), self.leaky)
         S = x.shape[-1]
         weights = channel_softmax(x.reshape(B, V, S, S, S))
         merged = channel_sum(coarse_volumes * weights, keepdims=False)

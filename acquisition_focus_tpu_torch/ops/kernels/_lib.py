@@ -30,7 +30,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'kernels'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC')
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
     'afk_plane_resample_fwd': [_P, _P, _P, _L] + [_I] * 7 + [_P],
     'afk_plane_resample_bwd': [_P, _P, _P, _L, _I, _P, _P, _P] + [_I] * 6 + [_P],
@@ -38,11 +38,19 @@ _SIGNATURES = {
     'afk_conv3d_fwd': [_P] * 5 + [_I] * 8 + [_P],
     'afk_conv3d_wgrad_workspace': [_I] * 6 + [_P],
     'afk_conv3d_wgrad': [_P] * 5 + [_I] * 7 + [_P],
+    'afk_p2v_rows': [_I] * 7,
+    'afk_p2v_merge_fwd': [_P] * 8 + [_I] * 7 + [_F, _P],
+    'afk_p2v_merge_dx': [_P] * 3 + [_I] * 6 + [_P],
+    'afk_p2v_merge_dw': [_P] * 6 + [_I] * 7 + [_F, _P],
+    'afk_p2v_merge_norm': [_P] * 8 + [_I] * 6 + [_F, _P],
+    'afk_p2v_merge_sum': [_P] + [_I] * 4 + [_P] * 4 + [_L, _F, _P],
+    'afk_p2v_up_dw': [_P] * 3 + [_I] * 4 + [_P],
 }
 
 LAUNCHES = spans.CounterView('launch.', (
     'plane_resample_fwd', 'plane_resample_bwd', 'volume_resample', 'conv3d_fwd',
-    'conv3d_dx', 'conv3d_wgrad'))
+    'conv3d_dx', 'conv3d_wgrad', 'p2v_merge_fwd', 'p2v_merge_dx', 'p2v_merge_dw',
+    'p2v_merge_norm', 'p2v_merge_sum', 'p2v_up_dw'))
 
 _lib = None
 

@@ -22,6 +22,12 @@
    sweep's own shapes are held too, in rows of their own: K1 with two views at the
    six levels, and K3, K3 as dx and K4 at its full-resolution decoder convs
    (64 -> 32 and 32 -> 32).
+   (E)Pix2Vox's 128^3 tail (``ops/kernels/p2v_tail.py``, ``csrc/p2v_tail.cu``) at
+   ``epix2vox.ref``'s shapes, against float64 (``check_p2v_tail``): each merger
+   block's fused forward, input gradient, weight and bias gradients and its
+   norm's backward at (2, Ci, 128^3), the last activation, the ordered sums, and
+   up5's weight gradient at (2, 32, 64^3), timed against the parent's library
+   calls with cuDNN's TF32 on.
 3. The training step: the default configuration's step
    (``spec_from_config(DEFAULTS, 6, 3)``: hybrid U-Net at reference widths, 3 views,
    6 classes, 128^3 @ 192 mm, batch 2 x accum 2, bf16) on phantom labels, random
@@ -59,7 +65,7 @@
 6. The (E)Pix2Vox sweep through the CLI on the same files: a meta config like
    ``config_dict_id21.json`` (hybrid-EPix2Vox, p2CH + p4CH, binarized) at batch 1
    x accum 4, 2 epochs per stage, opt_view0, opt_view1 and ref, read back as in 5;
-   K2, the one kernel on that path, must launch. Then (E)Pix2Vox steps at that
+   K2 and the 128^3 tail's kernels (``p2v_*``) must launch. Then (E)Pix2Vox steps at that
    shape, timed with cuDNN's TF32 on and off, and one hybrid-Pix2Vox step; and an
    EPix2VoxModel128 forward on the GPU (float32, TF32 off) against the CPU's.
 7. From-segmented, on the same files: the segmenter trained by
@@ -86,7 +92,10 @@
    in the mesh runs. The same three runs of (E)Pix2Vox (``config_dict_id21.json``'s
    model keys: hybrid-EPix2Vox, p2CH + p4CH, binarized labels; the opt-all
    localization nets; TF32 on, cuDNN's deterministic algorithms): bit-equal, K2
-   launching (its counts are their own path, ``epix2vox_mesh_world_of_one``).
+   launching (its counts are their own path, ``epix2vox_mesh_world_of_one``);
+   {'data': 1} runs the 128^3 tail's kernels as the unmeshed run does, while
+   {'model': 1}'s stand-ins keep the library's path, so it is held against a
+   fourth, unmeshed run with the tail on the library's path.
    With two or more cards it also runs ``scripts/smoke_mesh``'s
    gradient checks on the meshes that fit (the four-card proof is ``python3 -m
    acquisition_focus_tpu_torch.scripts.smoke_mesh``). The phase prints which.
@@ -98,8 +107,9 @@
    kernels as JSON: launches during the CLI run (``launches``; per path in
    ``launches_by_path``: the hybrid-unet sweep, the (E)Pix2Vox sweep, the
    from-segmented sweep, and the mesh phase's world-of-one runs of the hybrid
-   U-Net and of (E)Pix2Vox; K2's row also holds ``prescan32``, its check at the
-   from-segmented prescan shape, and the rows of K1, K3 and K4 ``from_segmented``,
+   U-Net and of (E)Pix2Vox; the tail's rows (``p2v_*``, ``replaces`` null: no TPU
+   kernel) sum the five merger blocks' checks; K2's row also holds ``prescan32``,
+   its check at the from-segmented prescan shape, and the rows of K1, K3 and K4 ``from_segmented``,
    their checks at that sweep's two-view shapes; ``max_abs_err`` is the largest
    over all of a kernel's shapes) and per
    training step of each mode
@@ -116,6 +126,7 @@
    non-zero.
 """
 
+import contextlib
 import json
 import math
 import shutil
@@ -690,6 +701,200 @@ def check_from_segmented_kernels(chk, rng):
     torch.cuda.empty_cache()
 
 
+# (E)Pix2Vox's 128^3 tail (ops/kernels/p2v_tail.py) at epix2vox.ref's shapes: the
+# merger's blocks (Ci, Co) on the batch it runs at (2 samples, their views fused by
+# the cross-view conv), and up5 (32 -> 8, 64^3 -> 128^3) on the decoder's 2 volumes
+P2V_BLOCKS = ((9, 16), (16, 8), (8, 4), (4, 2), (2, 1))
+P2V_N, P2V_S, P2V_SLOPE, P2V_EPS = 2, 128, 0.2, 1e-5
+TF32_FLOP_S = 495e12        # dense TF32 tensor-core peak (the configuration's precision)
+
+
+@contextlib.contextmanager
+def cudnn_tf32():
+    """cuDNN's TF32 on, as (E)Pix2Vox's configuration runs its library calls."""
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+
+
+def check_p2v_tail(chk):
+    """The 128^3 tail's kernels at ``epix2vox.ref``'s shapes, on card tensors, each
+    held against its plain version run in float64 on the same inputs (errors over
+    the reference's max, tolerance 1e-5: float32 rounding of sums over up to 432
+    terms a voxel and 4M voxels a channel, where a wrong term or tile is 1e-2 or
+    more). Per merger block (Ci -> Co, x (2, Ci, 128^3) taken as the previous
+    block's pre-norm output, its statistics, a norm scale in [0.5, 1.5] and a
+    shift ~ N(0, 0.3); the first block reads x as it is): ``block_forward``
+    (``p2v_merge_fwd``: the previous norm and leaky-ReLU on load, y and y's
+    statistics), ``block_input_grad`` (``p2v_merge_dx``), ``block_param_grads``
+    (``p2v_merge_dw``: weight and bias gradients), ``norm_backward`` on y
+    (``p2v_merge_norm``'s sums and apply; its leaky-ReLU branch taken from the
+    kernels' own z, as ``norm_act`` gives it, since a z within float32 rounding of
+    0 takes the other slope) and, for the last block, ``norm_act``; then
+    ``up_weight_grad`` (``p2v_up_dw``) at (2, 32, 64^3). ``p2v_merge_sum``
+    (float64 column sums) is timed alone on each block's partials; the other
+    rows time the wrappers, their sums included. Library: the parent's calls for
+    the same work in float32 with cuDNN's TF32 on, as the configuration runs
+    them (norm + leaky-ReLU + ``F.conv3d``; ``conv3d_input``; the activation and
+    ``conv3d_weight``; autograd's backward of ``F.batch_norm`` + leaky-ReLU; the
+    transposed conv's weight gradient). Bound: the bytes, each input read and
+    each output written once at float32, or the operations at the TF32 peak."""
+    import torch.nn.functional as F
+    from acquisition_focus_tpu_torch.ops.kernels import p2v_tail
+    grad_input, grad_weight = torch.nn.grad.conv3d_input, torch.nn.grad.conv3d_weight
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    N, S, slope, eps = P2V_N, P2V_S, P2V_SLOPE, P2V_EPS
+    V = S ** 3
+    dims = (0, 2, 3, 4)
+    view = (1, -1, 1, 1, 1)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device='cuda')
+
+    def stats64(y64):
+        var, mean = torch.var_mean(y64, dims, correction=0)
+        return torch.stack([mean, (var + eps).rsqrt()])
+
+    def act64(x64, st, gamma, beta):
+        sc = gamma.double() * st[1].double()
+        return F.leaky_relu(x64 * sc.view(view) + (beta.double() - st[0].double() * sc).view(view),
+                            slope)
+
+    def lib_act(x, st, gamma, beta):
+        return F.leaky_relu(F.batch_norm(x, None, None, gamma, beta, True, eps=eps), slope)
+
+    for i, (ci, co) in enumerate(P2V_BLOCKS):
+        name = f"block {i} Ci{ci} Co{co}"
+        log(f"p2v tail, merger {name}: x ({N}, {ci}, {S}^3)")
+        x = rand(N, ci, S, S, S)
+        w, b = rand(co, ci, 3, 3, 3) / (27 * ci) ** 0.5, rand(co) * 0.1
+        g = rand(N, co, S, S, S)
+        x64 = x.double()
+        if i:
+            st_x = stats64(x64).float()
+            gamma = torch.rand((ci,), generator=gen, device='cuda') + 0.5
+            beta = rand(ci) * 0.3
+            prev = (st_x, gamma, beta, slope)
+            a64 = act64(x64, st_x, gamma, beta)
+        else:
+            prev, a64 = None, x64
+        ops = 2 * N * V * 27 * ci * co
+        wb = 4 * (w.numel() + co)
+
+        y, st = p2v_tail.block_forward(x, prev, w, b, eps)
+        y64 = F.conv3d(a64, w.double(), b.double(), padding=1)
+        chk.compare('p2v_merge_fwd', f'{name} y', y, y64, 1e-5, True)
+        st64 = stats64(y64)
+        chk.compare('p2v_merge_fwd', f'{name} mean', st[0], st64[0], 1e-5, True)
+        chk.compare('p2v_merge_fwd', f'{name} rstd', st[1], st64[1], 1e-5, True)
+        del st64
+        with cudnn_tf32():
+            chk.timed('p2v_merge_fwd', name, lambda: p2v_tail.block_forward(x, prev, w, b, eps),
+                      (lambda: F.conv3d(lib_act(x, *prev[:3]), w, b, padding=1)) if i else
+                      (lambda: F.conv3d(x, w, b, padding=1)), 3, main=True, library=True)
+        chk.add_bound('p2v_merge_fwd', 4 * N * V * (ci + co) + wb, ops, TF32_FLOP_S)
+
+        dx = p2v_tail.block_input_grad(g, w, x.shape)
+        chk.compare('p2v_merge_dx', f'{name} dx', dx,
+                    grad_input(x.shape, w.double(), g.double(), padding=1), 1e-5, True)
+        del dx
+        with cudnn_tf32():
+            chk.timed('p2v_merge_dx', name, lambda: p2v_tail.block_input_grad(g, w, x.shape),
+                      lambda: grad_input(x.shape, w, g, padding=1), 3, main=True, library=True)
+        chk.add_bound('p2v_merge_dx', 4 * N * V * (ci + co) + wb, ops, TF32_FLOP_S)
+
+        dw, db = p2v_tail.block_param_grads(x, prev, g, w.shape)
+        chk.compare('p2v_merge_dw', f'{name} dw', dw,
+                    grad_weight(a64, w.shape, g.double(), padding=1), 1e-5, True)
+        chk.compare('p2v_merge_dw', f'{name} db', db, g.double().sum(dims), 1e-5, True)
+        del dw, db, a64
+        with cudnn_tf32():
+            chk.timed('p2v_merge_dw', name, lambda: p2v_tail.block_param_grads(x, prev, g, w.shape),
+                      (lambda: (grad_weight(lib_act(x, *prev[:3]), w.shape, g, padding=1),
+                                g.sum(dims))) if i else
+                      (lambda: (grad_weight(x, w.shape, g, padding=1), g.sum(dims))),
+                      3, main=True, library=True)
+        chk.add_bound('p2v_merge_dw', 4 * N * V * (ci + co) + wb, ops, TF32_FLOP_S)
+        del x, x64, g
+
+        # the norm of this block's output y, with the statistics the kernel gave it
+        gamma_y = torch.rand((co,), generator=gen, device='cuda') + 0.5
+        beta_y = rand(co) * 0.3
+        da = rand(N, co, S, S, S)
+        mask = p2v_tail.norm_act(y, st, gamma_y, beta_y, slope) > 0
+        mean, rstd = st[0].double().view(view), st[1].double().view(view)
+        xhat = (y64 - mean) * rstd
+        dz = torch.where(mask, da.double(), da.double() * slope)
+        s1, s2 = dz.sum(dims), (dz * xhat).sum(dims)
+        k = gamma_y.double().view(view) * rstd / (N * V)
+        dy64 = k * (N * V * dz - s1.view(view) - xhat * s2.view(view))
+        del dz, mask
+        dy, dgamma, dbeta = p2v_tail.norm_backward(da, y, st, gamma_y, beta_y, slope)
+        chk.compare('p2v_merge_norm', f'{name} backward dy', dy, dy64, 1e-5, True)
+        chk.compare('p2v_merge_norm', f'{name} backward dgamma', dgamma, s2, 1e-5, True)
+        chk.compare('p2v_merge_norm', f'{name} backward dbeta', dbeta, s1, 1e-5, True)
+        del dy, dy64, xhat
+        yr = y.clone().requires_grad_()
+        gr, br = gamma_y.clone().requires_grad_(), beta_y.clone().requires_grad_()
+        with cudnn_tf32():
+            out = F.leaky_relu(F.batch_norm(yr, None, None, gr, br, True, eps=eps), slope)
+            chk.timed('p2v_merge_norm', f'{name} backward',
+                      lambda: p2v_tail.norm_backward(da, y, st, gamma_y, beta_y, slope),
+                      lambda: torch.autograd.grad(out, (yr, gr, br), da, retain_graph=True),
+                      3, main=True, library=True)
+        del out, yr
+        # reduce: y and da read; apply: y and da read, dy written
+        chk.add_bound('p2v_merge_norm', 4 * N * V * co * 5, 0, TF32_FLOP_S)
+        if i == len(P2V_BLOCKS) - 1:
+            got = p2v_tail.norm_act(y, st, gamma_y, beta_y, slope)
+            chk.compare('p2v_merge_norm', f'{name} activation', got,
+                        act64(y64, st, gamma_y, beta_y), 1e-5, True)
+            del got
+            chk.timed('p2v_merge_norm', f'{name} activation',
+                      lambda: p2v_tail.norm_act(y, st, gamma_y, beta_y, slope),
+                      lambda: lib_act(y, st, gamma_y, beta_y), 3, main=True, library=True)
+            chk.add_bound('p2v_merge_norm', 4 * N * V * co * 2, 0, TF32_FLOP_S)
+
+        # p2v_merge_sum alone on this block's forward statistics' partials
+        rows = p2v_tail._rows(p2v_tail._ROWS_FWD, N, ci, co, (S, S, S))
+        part = rand(rows, 2 * co)
+        got, _ = p2v_tail._sum(part, co, p2v_tail._SUM_STATS, count=N * V, out_rows=2, eps=eps)
+        p64 = part.double().sum(0)
+        m64 = p64[:co] / (N * V)
+        chk.compare('p2v_merge_sum', f'{name} mean', got[0], m64, 1e-5, True)
+        chk.timed('p2v_merge_sum', f'{name} stats ({rows} rows)',
+                  lambda: p2v_tail._sum(part, co, p2v_tail._SUM_STATS, count=N * V, out_rows=2,
+                                        eps=eps),
+                  lambda: part.double().sum(0), 10, main=True)
+        chk.add_bound('p2v_merge_sum', 4 * part.numel(), 0, TF32_FLOP_S)
+        del y, y64, da, part
+        torch.cuda.empty_cache()
+
+    ci, co = p2v_tail.UP_KERNEL_SHAPE[:2]
+    Su = S // 2
+    log(f"p2v tail, up5: x ({N}, {ci}, {Su}^3), cotangent ({N}, {co}, {S}^3)")
+    x, g = rand(N, ci, Su, Su, Su), rand(N, co, S, S, S)
+    shape = p2v_tail.UP_KERNEL_SHAPE
+    w = torch.zeros(shape, device='cuda')
+
+    def lib_up_dw(x, g, w):
+        return torch.ops.aten.convolution_backward(g, x, w, None, [2] * 3, [1] * 3, [1] * 3,
+                                                   True, [0] * 3, 1, [False, True, False])[1]
+
+    chk.compare('p2v_up_dw', 'up5 dw', p2v_tail.up_weight_grad(x, g, shape),
+                lib_up_dw(x.double(), g.double(), w.double()), 1e-5, True)
+    with cudnn_tf32():
+        chk.timed('p2v_up_dw', 'up5 dw', lambda: p2v_tail.up_weight_grad(x, g, shape),
+                  lambda: lib_up_dw(x, g, w), 3, main=True, library=True)
+    chk.add_bound('p2v_up_dw', 4 * (x.numel() + g.numel() + w.numel()),
+                  2 * N * Su ** 3 * ci * co * 64, TF32_FLOP_S)
+    del x, g
+    torch.cuda.empty_cache()
+
+
 def phantom_batch(spec, device, B=2):
     """(accum, B, ...) batch of phantom labels: accum x B samples at the hires grid,
     their NIfTI affines, identity view affines (as the JAX package's bench)."""
@@ -731,6 +936,10 @@ STEP_KERNELS = {
     'full': ('plane_resample_fwd', 'plane_resample_bwd', 'volume_resample', 'conv3d_fwd',
              'conv3d_dx', 'conv3d_wgrad'),
 }
+# (E)Pix2Vox's 128^3 tail (ops/kernels/p2v_tail.py): every one launches in a
+# float32 (E)Pix2Vox training step on one card
+TAIL_KERNELS = ('p2v_merge_fwd', 'p2v_merge_dx', 'p2v_merge_dw', 'p2v_merge_norm',
+                'p2v_merge_sum', 'p2v_up_dw')
 
 
 def run_steps(mode):
@@ -1136,7 +1345,7 @@ def run_sweep(tmp, data):
     sweep_s = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
     log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in STEP_KERNELS['full'] if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched in the sweep: {missing}")
 
@@ -1202,7 +1411,8 @@ def run_epix2vox_sweep(tmp, data):
     batch 1 x accum 4, 2 epochs per stage, fold 0, cache off, on the phantom files
     of the build phase: opt_view0, opt_view1 and ref. The model computes in
     float32 with PyTorch's default TF32 for cuDNN convolutions. K2 (the prescan
-    resample of the opt stages) is the one kernel on this path and must launch."""
+    resample of the opt stages) and the 128^3 tail's kernels (``TAIL_KERNELS``)
+    must launch."""
     from acquisition_focus_tpu_torch import main as cli
     from acquisition_focus_tpu_torch.ops.kernels import _lib
 
@@ -1231,8 +1441,9 @@ def run_epix2vox_sweep(tmp, data):
     sweep_s = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
     log(f"  CLI run (dataset build + sweep) {sweep_s:.1f} s; kernel launches: {launches}")
-    if launches['volume_resample'] <= 0:
-        raise AssertionError("K2 (volume_resample) not launched in the (E)Pix2Vox sweep")
+    missing = [k for k in ('volume_resample',) + TAIL_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the (E)Pix2Vox sweep: {missing}")
     _, _, epochs_total = check_sweep(state_path, tmp / 'epix_runs',
                                      ['opt_view0', 'opt_view1', 'ref'])
     log(f"  epochs {epochs_total:.3f} s of the CLI run's {sweep_s:.3f} s")
@@ -1617,30 +1828,41 @@ def run_from_segmented(tmp, data):
             'reference': ref}
 
 
-def world_of_one(tmp, name, config, fold, train, test):
+def world_of_one(tmp, name, config, fold, train, test, library_tail=False):
     """``run_dl`` of ``config`` (one epoch, saved) without a mesh, then in an NCCL
     process group of one rank on {'data': 1} (the gradient all-reduce over
     'data', and for (E)Pix2Vox the batch norms given their group) and on
     {'model': 1} (every module the rule splits its sharded stand-in, every
     collective at world size 1): the losses and scores in ``metrics.jsonl`` and
-    the epoch's checkpoint bit-equal to the unmeshed run's. The kernel counts
-    are set to 0 just before the mesh runs and read just after. Returns them."""
+    the epoch's checkpoint bit-equal to the unmeshed run's. ``library_tail``
+    ((E)Pix2Vox): the stand-ins keep the library's path where the whole model
+    runs the 128^3 tail's kernels, so {'model': 1} is held against a second
+    unmeshed run with the tail on the library's path. The kernel counts are set
+    to 0 just before the mesh runs and read just after. Returns them."""
+    from unittest import mock
+
     import torch.distributed as dist
     from acquisition_focus_tpu_torch.engine.checkpoint import load_checkpoint
     from acquisition_focus_tpu_torch.engine.runner import run_dl
+    from acquisition_focus_tpu_torch.models import epix2vox
     from acquisition_focus_tpu_torch.ops.kernels import _lib
     from acquisition_focus_tpu_torch.parallel.mesh import free_port
     runs = {'no mesh': None, "{'data': 1}": {'data': 1}, "{'model': 1}": {'model': 1}}
+    if library_tail:
+        runs = {'no mesh': None, 'no mesh, tail on the library': None, **runs}
+    reference = {"{'model': 1}": 'no mesh, tail on the library'} if library_tail else {}
     seconds = {}
     for i, (label, shape) in enumerate(runs.items()):
-        if i == 1:
+        if shape is not None and not dist.is_initialized():
             dist.init_process_group('nccl', init_method=f'tcp://localhost:{free_port()}',
                                     rank=0, world_size=1)
             torch.cuda.synchronize()
             _lib.reset_launch_counts()
         t0 = time.perf_counter()
-        run_dl(str(tmp), dict(config, mesh_shape=shape), fold, training_dataset=train,
-               test_dataset=test, run_name=f'{name}{i}')
+        with mock.patch.object(epix2vox, '_tail_on_card', lambda *args: False) \
+                if label == 'no mesh, tail on the library' else contextlib.nullcontext():
+            run_dl(str(tmp), dict(config, mesh_shape=shape), fold, training_dataset=train,
+                   test_dataset=test, run_name=f'{name}{i}')
         torch.cuda.synchronize()
         seconds[label] = time.perf_counter() - t0
     launches = dict(_lib.LAUNCHES)
@@ -1661,16 +1883,20 @@ def world_of_one(tmp, name, config, fold, train, test):
                     for k2, v2 in tensors(v, f'{prefix}/{k}').items()}
         return {}
 
-    ref_log = logged(0)
-    ref_ck = tensors(load_checkpoint(tmp / 'mesh_models' / f'{name}0_epx0'))
-    for i, label in list(enumerate(runs))[1:]:
+    index = {label: i for i, label in enumerate(runs)}
+    for i, label in enumerate(runs):
+        if runs[label] is None:
+            continue
+        ref = index[reference.get(label, 'no mesh')]
+        ref_log = logged(ref)
+        ref_ck = tensors(load_checkpoint(tmp / 'mesh_models' / f'{name}{ref}_epx0'))
         got = tensors(load_checkpoint(tmp / 'mesh_models' / f'{name}{i}_epx0'))
         differ = [k for k in ref_ck if k not in got or not torch.equal(ref_ck[k], got[k])]
         got_log = logged(i)
         same_log = got_log == ref_log
         log(f"  {label}: {len(ref_log)} logged losses and scores bit-equal to the "
-            f"unmeshed run's: {same_log}; checkpoint tensors {len(ref_ck)}, differing "
-            f"{len(differ)} {differ[:3]}")
+            f"run '{list(runs)[ref]}': {same_log}; checkpoint tensors {len(ref_ck)}, "
+            f"differing {len(differ)} {differ[:3]}")
         if not same_log:
             log(f"    first logged values that differ: "
                 f"{[(a, b) for a, b in zip(ref_log, got_log) if a != b][:4]}")
@@ -1712,7 +1938,7 @@ def run_mesh(tmp, datasets):
         f"{len(fold[1][1])} val, {len(test)} test cases), without a mesh, then in an "
         f"NCCL process group of one rank on {{'data': 1}} and {{'model': 1}}")
     launches = {'mesh_world_of_one': world_of_one(tmp, 'mesh', config, fold, train, test)}
-    missing = [k for k, n in launches['mesh_world_of_one'].items() if n <= 0]
+    missing = [k for k in STEP_KERNELS['full'] if launches['mesh_world_of_one'][k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched in the mesh runs: {missing}")
 
@@ -1726,11 +1952,14 @@ def run_mesh(tmp, datasets):
     torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, True
     try:
         launches['epix2vox_mesh_world_of_one'] = world_of_one(
-            tmp, 'epix_mesh', epix, fold, binarized(train, epix), binarized(test, epix))
+            tmp, 'epix_mesh', epix, fold, binarized(train, epix), binarized(test, epix),
+            library_tail=True)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flags
-    if launches['epix2vox_mesh_world_of_one']['volume_resample'] <= 0:
-        raise AssertionError("K2 (volume_resample) not launched in the (E)Pix2Vox mesh runs")
+    missing = [k for k in ('volume_resample',) + TAIL_KERNELS
+               if launches['epix2vox_mesh_world_of_one'][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the (E)Pix2Vox mesh runs: {missing}")
 
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -1840,6 +2069,7 @@ def main():
     check_conv3d(chk, np.random.default_rng(5), CONVS_MESH, MESH)
     check_conv3d_grads(chk, CONVS_MESH, MESH)
     torch.cuda.empty_cache()
+    check_p2v_tail(chk)
     log_clocks('after the kernel checks')
 
     fwd = run_steps('fwd')
@@ -1872,6 +2102,9 @@ def main():
                       'acquisition_focus_tpu/ops/pallas/conv3d.py:143'),
         'conv3d_wgrad': ('acquisition_focus_tpu_torch/csrc/conv3d_wgrad.cu',
                          'acquisition_focus_tpu/ops/pallas/conv3d.py:248'),
+        # (E)Pix2Vox's 128^3 tail: the JAX package leaves these layers to XLA
+        **{name: ('acquisition_focus_tpu_torch/csrc/p2v_tail.cu', None)
+           for name in TAIL_KERNELS},
     }
     kernels = [{'name': name, 'route': 'cuda', 'source': src, 'replaces': rep,
                 'launches': launches[name],

@@ -399,8 +399,8 @@ def test_cpu_wrappers_take_the_plain_versions_and_count_nothing(rng):
 
 def test_ctypes_signatures_match_the_sources():
     """Each C entry's ctypes argtypes (``_lib._SIGNATURES``) follow its declaration
-    in ``csrc/*.cu``: a pointer as c_void_p, ``long long`` as c_longlong, ``int``
-    as c_int."""
+    in ``csrc/*.cu``: a pointer as c_void_p, ``long long`` as c_longlong,
+    ``float`` as c_float, ``int`` as c_int."""
     import ctypes
     import re
     decls = {}
@@ -408,7 +408,8 @@ def test_ctypes_signatures_match_the_sources():
         for name, params in re.findall(r'extern "C" [\w ]+?(afk_\w+)\(([^)]*)\)',
                                        path.read_text()):
             decls[name] = [ctypes.c_void_p if '*' in p else
-                           ctypes.c_longlong if 'long long' in p else ctypes.c_int
+                           ctypes.c_longlong if 'long long' in p else
+                           ctypes.c_float if p.split()[0] == 'float' else ctypes.c_int
                            for p in params.split(',')]
     for name, argtypes in _lib._SIGNATURES.items():
         assert decls[name] == argtypes, name
@@ -894,7 +895,9 @@ def test_launch_counts(cuda):
            torch.zeros(3, device=cuda))
     assert _lib.LAUNCHES == {'plane_resample_fwd': 1, 'plane_resample_bwd': 1,
                              'volume_resample': 1, 'conv3d_fwd': 1, 'conv3d_dx': 0,
-                             'conv3d_wgrad': 0}
+                             'conv3d_wgrad': 0, 'p2v_merge_fwd': 0, 'p2v_merge_dx': 0,
+                             'p2v_merge_dw': 0, 'p2v_merge_norm': 0, 'p2v_merge_sum': 0,
+                             'p2v_up_dw': 0}
     # the skip connector's three views: one launch each way
     s3 = T(rng.normal(size=(1, 6, 8, 8)), device=cuda).requires_grad_()
     y = torch.zeros(1, 2, 8, 8, 8, device=cuda, requires_grad=True)

@@ -1,6 +1,6 @@
-"""Rank functions of ``test_torch_mesh.py`` and ``test_torch_epix2vox_mesh*.py``, in
-a module that imports no JAX: each rank that ``parallel.spawn_ranks`` starts
-imports this module to find them.
+"""Rank functions of ``test_torch_mesh.py``, ``test_torch_epix2vox_mesh*.py`` and
+``test_torch_p2v_kernels.py``, in a module that imports no JAX: each rank that
+``parallel.spawn_ranks`` starts imports this module to find them.
 
 A rank runs a list of jobs ``(function name, *args)`` in order; rank 0 saves each
 job's result to ``out_dir/<i>.pt`` (every job is a collective, so rank 0's
@@ -22,10 +22,12 @@ from acquisition_focus_tpu_torch.engine.checkpoint import (
 from acquisition_focus_tpu_torch.engine.optimizers import (
     make_epix2vox_optimizer, make_reconstruction_optimizer, make_transform_optimizer)
 from acquisition_focus_tpu_torch.engine.runner import run_dl
-from acquisition_focus_tpu_torch.models.epix2vox import BatchNorm, Bottleneck, Epix2VoxDecoder
+from acquisition_focus_tpu_torch.models.epix2vox import (
+    BatchNorm, Bottleneck, Epix2VoxDecoder, Epix2VoxMerger)
 from acquisition_focus_tpu_torch.parallel.collectives import (
     all_gather, all_reduce_sum, copy_to_model, data_gather, gather_from_model, model_gather)
 from acquisition_focus_tpu_torch.models import recompute
+from acquisition_focus_tpu_torch.ops.kernels import p2v_tail
 from acquisition_focus_tpu_torch.parallel.feature_parallel import shard_epix2vox
 from acquisition_focus_tpu_torch.parallel.mesh import SPLIT_ATTR, is_split
 from acquisition_focus_tpu_torch.parallel.mesh import (
@@ -140,6 +142,31 @@ def batch_norm(x, weight, bias, cotangent, data):
     return dict(y=data_gather(y.detach(), mesh), dx=data_gather(xr.grad, mesh),
                 dweight=all_reduce_sum(norm.weight.grad, group),
                 dbias=all_reduce_sum(norm.bias.grad, group))
+
+
+def merger_data_group(state_dict, slope, x, cotangent, data, device):
+    """The (E)Pix2Vox merger's blocks through ``p2v_tail.merge_convs`` (the plain
+    versions for CPU tensors, the kernels for CUDA ones: ``device``, which every
+    rank shares) on {'data': ``data``}: each rank takes its rows of x (N, 9,
+    ...), its norms' statistics over the whole batch, and the gradient of
+    sum(out * cotangent) over its rows. Returns the whole batch's output and input
+    gradient (gathered) and each parameter's gradient summed over the ranks."""
+    mesh = make_mesh({'data': data})
+    group, k = mesh.groups['data'], x.shape[0] // data
+    rows = slice(mesh.axis_index('data') * k, (mesh.axis_index('data') + 1) * k)
+    merger = Epix2VoxMerger(slope).to(device=device, dtype=x.dtype)
+    merger.load_state_dict(state_dict)
+    n = len(merger.FEATURES)
+    norms = [getattr(merger, f'm{i}_bn') for i in range(n)]
+    for norm in norms:
+        norm.group = group
+    xr = x[rows].clone().to(device).requires_grad_()
+    out = p2v_tail.merge_convs(xr, [getattr(merger, f'm{i}_conv') for i in range(n)], norms,
+                               slope)
+    (out * cotangent[rows].to(device)).sum().backward()
+    return dict(out=data_gather(out.detach().cpu(), mesh), dx=data_gather(xr.grad.cpu(), mesh),
+                grads={name: all_reduce_sum(p.grad.cpu(), group)
+                       for name, p in merger.named_parameters()})
 
 
 def bottleneck(state_dict, args, x, cotangent, model):
