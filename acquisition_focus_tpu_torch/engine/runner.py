@@ -127,15 +127,52 @@ class _NullLogger:
     log_label_metrics = log_oa_metrics = finish = log
 
 
+def _host_tensor(a):
+    """The numpy array ``a`` as a CPU tensor over its own memory and strides, or
+    over a contiguous copy where ``torch.from_numpy`` cannot take its strides
+    (negative, or not a multiple of the item size)."""
+    try:
+        return torch.from_numpy(a)
+    except ValueError:
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _to_card(a, dtype, device):
+    """One host array to the CUDA ``device`` without blocking: copied in its
+    stored dtype into page-locked memory from PyTorch's caching host allocator
+    (which keeps the block until the copy's event has passed, so ``a`` is free
+    on return), sent with a non-blocking copy on the current stream, and cast
+    to ``dtype`` there; the stored-width device copy is freed on return."""
+    src = _host_tensor(a)
+    host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    host.copy_(src)
+    spans.count('stage.pinned_bytes', host.nbytes)
+    return host.to(device, non_blocking=True).to(dtype)
+
+
 def _to_device(batch, device, image=False):
     """numpy batch -> tensors on ``device`` (labels as int64, the rest float32); the
     image volume only with ``image`` (the segmenter's input). In the span
-    ``af.stage``."""
+    ``af.stage``.
+
+    On a CUDA device each array takes the pinned route of :func:`_to_card`: no
+    blocking copy and no stream sync, and the same bits as a host-side cast
+    (int -> int64 is exact; float64 -> float32 rounds to nearest-even on either
+    side); counter ``stage.pinned_bytes``. Elsewhere each array is converted and
+    placed by ``torch.as_tensor``; counter ``stage.plain``, one per array."""
+    device = torch.device(device)
     with spans.span('af.stage'):
-        return {k: torch.as_tensor(np.asarray(v),
-                                   dtype=torch.int64 if k == 'label' else torch.float32,
-                                   device=device)
-                for k, v in batch.items() if image or k != 'image'}
+        out = {}
+        for k, v in batch.items():
+            if not image and k == 'image':
+                continue
+            a, dtype = np.asarray(v), torch.int64 if k == 'label' else torch.float32
+            if device.type == 'cuda':
+                out[k] = _to_card(a, dtype, device)
+            else:
+                out[k] = torch.as_tensor(a, dtype=dtype, device=device)
+                spans.count('stage.plain')
+        return out
 
 
 def _load_segmenter(config, num_classes, device):

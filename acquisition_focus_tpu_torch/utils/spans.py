@@ -43,7 +43,11 @@ each training step into a short ring of recent steps (:func:`recent_steps`). The
 hand-written kernel launch (``ops/kernels/_lib.py``, whose ``LAUNCHES`` is a view
 of them); ``recompute.replays``, ``recompute.ops`` and ``recompute.served``
 (``models/recompute.py``); ``collective.calls`` and ``collective.bytes``
-(``parallel/collectives.py``).
+(``parallel/collectives.py``); ``stage.pinned_bytes``, the bytes a batch sends
+to a CUDA device through pinned host memory without blocking, and
+``stage.plain``, one per array placed by the plain ``torch.as_tensor`` path, as
+on the CPU (``engine/runner.py::_to_device``, outside ``af.step``: they reach the
+running totals and the operator's per-step export, not the step ring).
 """
 
 import collections

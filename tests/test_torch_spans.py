@@ -327,6 +327,8 @@ def test_run_dl_logs_the_spans_per_step_each_epoch(tmp_path, trace_spans):
                                          'perf/count/recompute.ops'}
     rec = next(r for r in lines if 'perf/span/af.step_ms' in r)
     assert rec['perf/count/recompute.replays'] == ACCUM * (2 + 3)   # 2 ATM views, 3 stages
+    # label, nii_affine, view_affines of each macrobatch, by the CPU's plain path
+    assert rec['perf/count/stage.plain'] == 3 and 'perf/count/stage.pinned_bytes' not in rec
     assert 0 < rec['perf/span/af.forward_ms'] < rec['perf/span/af.step_ms']
 
 
